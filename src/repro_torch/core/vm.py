@@ -1,0 +1,325 @@
+"""Batched stream VM, specialized path — the torch port of
+:mod:`repro.core.vm`.
+
+The VM executes a stream-ISA program (:mod:`repro_torch.core.compile`) for
+G independent systems at once: ``mem`` holds the vector buffers (x r p ap
+M b) as ``[6, G, n]``, ``queues`` the inter-module streams as
+``[8, G, n]``, ``sregs`` the scalar registers as ``[6, G]``.  One tick runs
+the program once — one JPCG iteration per lane — and every write to
+``mem``/``queues``/``sregs`` is gated on the lane's commit mask exactly as
+in the phases engine (:func:`repro_torch.core.batch._batched_body`), so
+the VM is bitwise equal to it.
+
+Only the *specialized* path is ported: the program is a concrete array,
+decoded once (:func:`_analyze_program`) and run word by word as
+straight-line torch ops with static buffer/queue indices
+(:func:`_run_specialized`).  Only the buffers the program touches and
+the queues it reads before writing are carried between ticks; the rest
+pass through untouched.  The generic traced-operand path
+(``specialize=False``) is not ported.
+
+The tick updates the state's tensors **in place** (``torch.where(...,
+out=)``) — the torch spelling of the reference's buffer donation: a
+runner owns the state it creates, and a stepper either consumes the
+state it is given (``donate=True``, the serving engine) or works on a
+copy.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.batch import (_cached, _masked_trace, _matvec_factory,
+                                    _row_dot, _run_chunked)
+from repro_torch.core.compile import executable_key
+from repro_torch.core.isa import (CTRL_ALPHA, ITYPE_COMP, ITYPE_CTRL,
+                                  ITYPE_VCTRL, SREG)
+from repro_torch.core.metrics import (advance_status, finalize_status,
+                                      initial_status, tick_health)
+from repro_torch.core.precision import get_scheme
+
+__all__ = ["BatchedVMState", "vm_init", "clone_state", "make_vm_runner",
+           "make_vm_stepper"]
+
+_N_QUEUES = 8
+_N_SREGS = 6
+
+#: COMP module id -> executor branch (0=spmv, 1=dot, 2=axpy, 3=div).
+_BRANCH_OF_MOD = (0, 1, 2, 2, 3, 1, 2, 1)
+
+
+class BatchedVMState(NamedTuple):
+    """Lane-batched VM state; every tensor's lane axis is G."""
+
+    k: torch.Tensor        # global tick (int32 scalar)
+    it: torch.Tensor       # int32[G] per-lane iteration counts
+    status: torch.Tensor   # int32[G] exit codes (metrics.STATUS_*)
+    mem: torch.Tensor      # [6, G, n] vector buffers (x r p ap M b)
+    queues: torch.Tensor   # [8, G, n] inter-module streams
+    sregs: torch.Tensor    # [6, G] scalar registers (α β rz rr pap rz')
+    active: torch.Tensor   # bool[G] live-lane mask
+    trace: torch.Tensor    # [G, maxiter] rr per iteration, or [G, 0]
+
+
+def vm_init(matvec, diag, b, x0, *, maxiter: int, with_trace: bool,
+            tol, detect: bool = True) -> BatchedVMState:
+    """Controller warm-up (paper Alg. 1 lines 1–5) — arithmetic identical
+    to :func:`repro_torch.core.batch._batched_init`, packed into VM
+    buffers."""
+    vd, dev = b.dtype, b.device
+    G = b.shape[0]
+    r = b - matvec(x0)
+    z = r / diag
+    rz = _row_dot(r, z)
+    rr = _row_dot(r, r)
+    mem = torch.stack([x0, r, z, torch.zeros_like(r), diag, b])
+    sregs = torch.zeros((_N_SREGS, G), dtype=vd, device=dev)
+    sregs[SREG["rz"]] = rz
+    sregs[SREG["rr"]] = rr
+    return BatchedVMState(
+        k=torch.zeros((), dtype=torch.int32, device=dev),
+        it=torch.zeros(G, dtype=torch.int32, device=dev),
+        status=initial_status(rr, tol, detect=detect), mem=mem,
+        queues=torch.zeros((_N_QUEUES,) + tuple(r.shape), dtype=vd,
+                           device=dev),
+        sregs=sregs, active=rr > tol,
+        trace=torch.zeros((G, maxiter if with_trace else 0), dtype=vd,
+                          device=dev))
+
+
+def clone_state(st: BatchedVMState) -> BatchedVMState:
+    return BatchedVMState(*(t.clone() for t in st))
+
+
+# -------------------------------------------------------- specialized path
+class _ProgramPlan(NamedTuple):
+    """Decoded program + the state it touches: ``carried_bufs`` (buffers
+    read or written) and ``live_queues`` (queues read before written) are
+    the loop-carried state; everything else passes through untouched."""
+
+    ops: Tuple[Tuple[int, ...], ...]   # decoded words (python ints)
+    read_bufs: Tuple[int, ...]
+    written_bufs: Tuple[int, ...]
+    carried_bufs: Tuple[int, ...]      # read ∪ written
+    live_queues: Tuple[int, ...]       # queues read before first write
+    written_queues: Tuple[int, ...]
+
+
+def _analyze_program(program: np.ndarray) -> _ProgramPlan:
+    """Decode a concrete program and compute the state it touches."""
+    ops = tuple(tuple(int(v) for v in w)
+                for w in np.asarray(program, np.int32))
+    rb, wb, wq, live = set(), set(), set(), set()
+
+    def read_queue(q):
+        if q not in wq:                  # first access is a read: live-in
+            live.add(q)
+
+    for w in ops:
+        if w[0] == ITYPE_VCTRL:
+            # a combined rd+wr word sees pre-instruction state: account
+            # the queue read before the queue write
+            if w[3]:                     # wr: queue[qa] -> mem[buf]
+                read_queue(w[4])
+                wb.add(w[1])
+            if w[2]:                     # rd: mem[buf] -> queue[qd]
+                rb.add(w[1])
+                wq.add(w[6])
+        elif w[0] == ITYPE_COMP:
+            kind = _BRANCH_OF_MOD[w[1]]
+            read_queue(w[4])             # qa
+            if kind != 0:                # dot / axpy / div read qb too
+                read_queue(w[5])
+            if kind != 1:                # spmv / axpy / div write qd
+                wq.add(w[6])
+    return _ProgramPlan(ops=ops, read_bufs=tuple(sorted(rb)),
+                        written_bufs=tuple(sorted(wb)),
+                        carried_bufs=tuple(sorted(rb | wb)),
+                        live_queues=tuple(sorted(live)),
+                        written_queues=tuple(sorted(wq)))
+
+
+def _run_specialized(plan: _ProgramPlan, matvec, mem: dict, queues: dict,
+                     sregs: torch.Tensor):
+    """Execute the program once, straight-line, with static indices.
+
+    ``mem``/``queues`` map buffer / queue ids to ``[G, n]`` tensors; the
+    inputs are never written (moves rebind dict entries, every op makes a
+    new tensor).  Returns ``(mem, queues, sregs)`` with ``sregs`` a new
+    ``[6, G]`` tensor.
+    """
+    mem = dict(mem)
+    queues = dict(queues)
+    s = list(sregs.unbind(0))
+    for w in plan.ops:
+        if w[0] == ITYPE_VCTRL:
+            buf, rd, wr, qa, qd = w[1], w[2], w[3], w[4], w[6]
+            src_m = mem[buf]             # pre-instruction snapshots: a
+            src_q = queues.get(qa)       # combined rd+wr word sees old state
+            if wr:
+                mem[buf] = src_q
+            if rd:
+                queues[qd] = src_m
+        elif w[0] == ITYPE_COMP:
+            mod, neg, qa, qb, qd, sr = w[1], w[2], w[4], w[5], w[6], w[7]
+            kind = _BRANCH_OF_MOD[mod]
+            a = queues[qa]
+            if kind == 0:                # M1: SpMV
+                queues[qd] = matvec(a)
+            elif kind == 1:              # M2/M6/M8: row-wise dot -> sreg
+                s[sr] = _row_dot(a, queues[qb])
+            elif kind == 2:              # M3/M4/M7: dst = a ± s·b
+                sc = -s[sr] if neg else s[sr]
+                queues[qd] = a + sc[:, None] * queues[qb]
+            else:                        # M5: dst = a / b
+                queues[qd] = a / queues[qb]
+        elif w[0] == ITYPE_CTRL:
+            if w[1] == CTRL_ALPHA:       # α = rz / pap
+                s[SREG["alpha"]] = s[SREG["rz"]] / s[SREG["pap"]]
+            else:                        # β = rz'/rz ; rz ← rz'
+                s[SREG["beta"]] = s[SREG["rz_new"]] / s[SREG["rz"]]
+                s[SREG["rz"]] = s[SREG["rz_new"]]
+        # NOP words do nothing
+    return mem, queues, torch.stack(s)
+
+
+def _spec_body(plan: _ProgramPlan, matvec, tol, maxiter_vec=None, *,
+               bound=None, detect=True):
+    """Specialized VM tick, in place on the state's tensors — the masking
+    of :func:`repro_torch.core.batch._batched_body` applied per carried
+    buffer / live queue; ``bound`` makes it self-gating for chunked
+    execution; ``detect`` classifies the candidate scalar registers
+    through :func:`~repro_torch.core.metrics.tick_health`."""
+    wb = frozenset(plan.written_bufs)
+    wq = frozenset(plan.written_queues)
+
+    def body(st: BatchedVMState) -> BatchedVMState:
+        m_in = {i: st.mem[i] for i in plan.carried_bufs}
+        q_in = {q: st.queues[q] for q in plan.live_queues}
+        n_mem, n_q, n_sregs = _run_specialized(plan, matvec, m_in, q_in,
+                                               st.sregs)
+        go = st.active.any()
+        if bound is not None:
+            go = go & (st.k < bound)
+        keep = st.active & go
+        rr_cand = n_sregs[SREG["rr"]]
+        upd, bd_i, bd_n = tick_health(
+            keep, n_sregs[SREG["pap"]], n_sregs[SREG["alpha"]],
+            n_sregs[SREG["beta"]], rr_cand, detect=detect)
+        # Commit in place.  A new value that is itself a carried tensor
+        # (a bare buffer/queue move) is copied first, so no commit reads
+        # a tensor an earlier commit of this tick already overwrote.
+        olds = [*m_in.values(), *q_in.values()]
+        commits = [(n_mem[i], m_in[i]) for i in plan.carried_bufs if i in wb]
+        commits += [(n_q[q], q_in[q]) for q in plan.live_queues if q in wq]
+        kv = upd[:, None]
+        commits = [(new.clone() if any(new is o for o in olds) else new, old)
+                   for new, old in commits]
+        for new, old in commits:
+            torch.where(kv, new, old, out=old)
+        torch.where(upd[None, :], n_sregs, st.sregs, out=st.sregs)
+        st.it.add_(upd.to(torch.int32))
+        _masked_trace(st.trace, st.k, upd, rr_cand)
+        live = st.sregs[SREG["rr"]] > tol
+        if maxiter_vec is not None:
+            live = live & (st.it < maxiter_vec)
+        if detect:
+            live = live & ~(bd_i | bd_n)
+        st.status.copy_(advance_status(
+            st.status, upd=upd, bd_indef=bd_i, bd_nonf=bd_n, rr_new=rr_cand,
+            tol=tol, it=st.it, maxiter_vec=maxiter_vec))
+        # a no-op tick (go=False) must not re-evaluate liveness
+        torch.where(keep, live, st.active, out=st.active)
+        st.k.add_(go.to(torch.int32))
+        return st
+
+    return body
+
+
+# -------------------------------------------------------------- runners
+def make_vm_runner(*, backend, scheme, maxiter, with_trace, layout=None,
+                   groups=None, col_tile=None, n_col_tiles=None,
+                   steps_per_sync: int = 8, detect: bool = True,
+                   program: Optional[np.ndarray] = None):
+    """Solve-to-completion VM runner for one bucket:
+    ``run(mat, diag, b, x0, tol) -> BatchedVMState``.
+
+    ``program`` is required (the specialized path); ``steps_per_sync``
+    ticks run per host read of the termination predicate (bit-identical
+    for any value); leftover ``RUNNING`` statuses finalize to ``MAXITER``.
+    """
+    if program is None:
+        raise NotImplementedError("the generic (program-as-operand) VM path "
+                                  "is not ported yet; pass program=")
+    scheme = get_scheme(scheme)
+    matvec_of = _matvec_factory(backend=backend, scheme=scheme,
+                                layout=layout, groups=groups,
+                                col_tile=col_tile, n_col_tiles=n_col_tiles)
+    plan = _analyze_program(program)
+
+    def run(mat, diag, b, x0, tol):
+        matvec = matvec_of(mat)
+        st = vm_init(matvec, diag, b, x0, maxiter=maxiter,
+                     with_trace=with_trace, tol=tol, detect=detect)
+        tick = _spec_body(plan, matvec, tol, bound=maxiter, detect=detect)
+
+        def cond(s):
+            return (s.k < maxiter) & s.active.any()
+
+        out = _run_chunked(cond, tick, st, steps=steps_per_sync)
+        return out._replace(status=finalize_status(out.status))
+
+    return run
+
+
+def make_vm_stepper(*, backend, scheme, bucket, chunk, layout=None,
+                    groups=None, index_bytes=None, col_tile=None,
+                    n_col_tiles=None, steps_per_sync: int = 8,
+                    donate: bool = False, detect: bool = True,
+                    program: Optional[np.ndarray] = None):
+    """Bounded VM stepper for incremental serving (``SolverEngine``):
+    ``step(mat, state, tol, maxiter_vec) -> state`` runs at most ``chunk``
+    ticks; per-lane budgets come in as ``maxiter_vec``.
+
+    ``donate=True`` consumes ``state``: it is updated in place and
+    returned.  Otherwise the stepper works on a copy.  Cached in the batch
+    runner cache, keyed on the bucket, chunk and program bytes.
+    """
+    if program is None:
+        raise NotImplementedError("the generic (program-as-operand) VM path "
+                                  "is not ported yet; pass program=")
+    scheme = get_scheme(scheme)
+    inner = max(1, min(int(steps_per_sync), int(chunk)))
+    prog = np.asarray(program, np.int32)
+    key = executable_key("vm_step_spec", backend=backend,
+                         scheme=scheme.name, bucket=bucket, layout=layout,
+                         index_bytes=index_bytes, chunk=chunk,
+                         steps_per_sync=inner, donate=donate, detect=detect,
+                         program=prog)
+
+    def make_spec():
+        matvec_of = _matvec_factory(backend=backend, scheme=scheme,
+                                    layout=layout, groups=groups,
+                                    col_tile=col_tile,
+                                    n_col_tiles=n_col_tiles)
+        plan = _analyze_program(prog)
+
+        def step(mat, state, tol, maxiter_vec):
+            if not donate:
+                state = clone_state(state)
+            matvec = matvec_of(mat)
+            start = state.k.clone()
+            tick = _spec_body(plan, matvec, tol, maxiter_vec,
+                              bound=start + chunk, detect=detect)
+
+            def cond(s):
+                return ((s.k - start) < chunk) & s.active.any()
+
+            return _run_chunked(cond, tick, state, steps=inner)
+
+        return step
+
+    return _cached(key, make_spec)
+
