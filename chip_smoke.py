@@ -22,10 +22,29 @@
    the singular lane exits BREAKDOWN_INDEFINITE at iteration 0, the rest
    converge, ``bytes_streamed_est`` equals the packed-array accounting.
 4. The same small bag through the port on the card and on the CPU.
+5. The single-system kernels against their plain versions on the card,
+   bitwise: ``spmv_ell`` (the ELLPACK kernel at G = 1) on
+   ``poisson_2d(1000)`` for every faithful scheme; ``dot``, ``dot3``,
+   ``phase2`` and ``phase3`` at fp32 and fp64 on vectors of n = 10^6 and
+   of ragged lengths.  Each is timed at n = 10^6 (fp64; the SpMV at
+   mixed_v3) with a cold, clean L2 before every call, beside its plain
+   version, its bound at 3.35 TB/s and, where one PyTorch call computes
+   the same function, that call (``torch.dot``; an fp64 CSR
+   ``torch.sparse.mm`` for the SpMV).
+6. The single-system solve (``jpcg_solve``) at full size on
+   ``poisson_2d(1000)`` (n = 1,000,000, 4,996,000 nonzeros; b = 1,
+   x0 = 0, tol 1e-12, maxiter 20,000): ``vsr`` × ``pallas`` at mixed_v3
+   and fp64, ``vsr`` × ``xla`` and ``pipelined`` × ``xla`` at mixed_v3.
+   Every solve converges to a true residual ≤ 1e-6; at mixed_v3 the
+   ``pallas`` and ``xla`` VSR solves agree (iterations ±1, x within
+   rtol 1e-4, atol 1e-6) and the pipelined x agrees with them.  Each is
+   timed as a call from the CSR and as the loop alone on a pre-built
+   operator; the mixed_v3 ``pallas`` loop is profiled once.
 
-Launch counters are set to 0 right before the solves of phase 2 and of
-phase 3 and read right after; each kernel must have launched in both.
-Any failed check raises.  The last line is the JSON result.
+Launch counters are set to 0 right before the solves of phases 2, 3 and
+6 and read right after; each kernel of a path must have launched on it
+(``dot3`` has no solver path: phase 5 launches it).  Any failed check
+raises.  The last line is the JSON result.
 """
 from __future__ import annotations
 
@@ -306,22 +325,34 @@ def _timed(run, args):
     return st, time.perf_counter() - t0
 
 
-def profile_loop(run, args, loop_s: float) -> dict:
-    """Device time by kernel over one whole VM solve (torch.profiler).
-
-    Only CUDA kernel events are summed (operator events repeat their
-    kernels' time); the busy share is against ``loop_s``, the same solve
-    timed without the profiler, whose host-side cost slows the launches.
-    """
+def device_profile(fn):
+    """Run ``fn`` once under torch.profiler; ``(result, wall_s, events)``
+    with one ``(kernel, device ms, count)`` per CUDA kernel name.  Only
+    kernel events are kept: operator events repeat their kernels' time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    import torch
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        st, wall = _timed(run, args)
-    ticks = int(st.k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     ev = [(e.key, e.self_device_time_total / 1e3, e.count)
           for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    return out, wall, ev
+
+
+def profile_loop(run, args, loop_s: float) -> dict:
+    """Device time by kernel over one whole VM solve (torch.profiler).
+
+    The busy share is against ``loop_s``, the same solve timed without
+    the profiler, whose host-side cost slows the launches.
+    """
+    st, wall, ev = device_profile(lambda: run(*args))
+    ticks = int(st.k)
     busy_ms = sum(t for _, t, _ in ev)
     n_kernels = sum(c for _, _, c in ev)
     log(f"    profile: {ticks} ticks, {n_kernels} kernels "
@@ -497,6 +528,243 @@ def phase_cross_device(dev):
     log("  card ≡ cpu within tolerance for 4 schemes × {SELL, ELLPACK}")
 
 
+# -------------------------------------------------------------- phase 5
+SINGLE_NX = 1000                    # poisson_2d(1000): n = 10^6
+RAGGED_N = (1, 4095, 4097, 1_000_003)   # 1,000,003 is prime
+
+
+def cold_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean device time of one call of ``fn`` with a cold L2.  Before each
+    call a 1 GiB read evicts the 50 MB L2 and leaves it clean (a write
+    would leave it dirty, and the call would pay for the write-back); a
+    pair of events brackets the call alone.  The read (~0.3 ms) outlasts
+    the host's work of issuing the call, so the events time the device,
+    not the host."""
+    import torch
+    flush = torch.zeros(256 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(warm):
+        fn()
+    marks = []
+    for _ in range(reps):
+        flush.sum()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / reps
+
+
+def _held(label, got, want, errs, name):
+    """Kernel output ≡ plain output, bitwise; records max |Δ|."""
+    import torch
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        torch.cuda.synchronize()
+        err = float((g.double() - w.double()).abs().max()) if g.numel() \
+            else 0.0
+        errs[name] = max(errs.get(name, 0.0), err)
+        if not _same(g, w):
+            raise AssertionError(f"{label}: {name} differs from its plain "
+                                 f"version (max |Δ| {err})")
+
+
+def phase_single_kernels(a, dev):
+    """spmv_ell, dot, dot3, phase2, phase3 against their plain versions on
+    the card, bitwise; each timed at n = 10^6 with its bound."""
+    import torch
+    from repro_torch.core.precision import get_scheme
+    from repro_torch.kernels import dot as D
+    from repro_torch.kernels import fused_phase as F
+    from repro_torch.kernels import spmv as K
+    from repro_torch.sparse import csr_to_ellpack
+
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    errs, timed = {}, {}
+    n = a.shape[0]
+    t0 = time.perf_counter()
+    m = csr_to_ellpack(a)
+    log(f"  ELLPACK pack of n={n}: {time.perf_counter() - t0:.2f} s, "
+        f"B={m.n_row_blocks} T={m.n_slabs} E={m.ell} R={m.block_rows}, "
+        f"{m.vals.size} stored slots for {a.nnz} nonzeros")
+    tc = torch.from_numpy(m.tile_cols).to(dev)
+    lc = torch.from_numpy(m.local_cols).to(dev)
+    xt = torch.randn(m.padded_cols, generator=gen, dtype=torch.float64
+                     ).reshape(-1, m.col_tile).to(dev)
+    for name in SCHEMES:
+        sch = get_scheme(name)
+        v = torch.from_numpy(m.vals).to(dev, sch.matrix_dtype)
+        args = (tc, v, lc, xt)
+        y_k = K.spmv_ell(*args, scheme=sch)
+        _held(f"spmv_ell/{name}", y_k, K.spmv_ell_plain(*args, scheme=sch),
+              errs, "spmv_ell")
+        log(f"  spmv_ell {name:8s}: bitwise equal")
+        if name != "mixed_v3":
+            continue
+        in_el = torch.empty((), dtype=sch.spmv_in_dtype).element_size()
+        acc_el = y_k.element_size()
+        need = a.nnz * (v.element_size() + lc.element_size()) \
+            + n * (in_el + acc_el)
+        b_ms, b_by = bound_ms(need, 2 * a.nnz, sch.spmv_acc_dtype)
+        moved = nbytes(tc, v, lc) + xt.numel() * in_el + nbytes(y_k)
+        st_ms, _ = bound_ms(moved, 2 * v.numel(), sch.spmv_acc_dtype)
+        A = block_diag_csr([a], n, dev, torch.float64)
+        xs = xt.reshape(-1)[:n].reshape(-1, 1).contiguous()
+        timed["spmv_ell"] = dict(
+            ms=cold_ms(lambda: K.spmv_ell(*args, scheme=sch)),
+            plain_ms=cold_ms(lambda: K.spmv_ell_plain(*args, scheme=sch)),
+            library_ms=cold_ms(lambda: torch.sparse.mm(A, xs)),
+            bound_ms=b_ms, bound_by=b_by, bound_stored_ms=st_ms,
+            library_dtype="float64", bytes=need, stored_bytes=moved)
+        del A
+
+    for dt in (torch.float64, torch.float32):
+        for nn in (n,) + RAGGED_N:
+            r, ap, p, x, w = (torch.randn(nn, generator=gen, dtype=dt
+                                          ).to(dev) for _ in range(5))
+            dg = (torch.rand(nn, generator=gen, dtype=dt) + 0.5).to(dev)
+            alpha = torch.tensor(0.37, dtype=dt, device=dev)
+            beta = torch.tensor(0.71, dtype=dt, device=dev)
+            label = f"{str(dt)[6:]}/n={nn}"
+            _held(label, D.dot(p, ap), D.dot_plain(p, ap), errs, "dot")
+            _held(label, D.dot3(r, p, w), D.dot3_plain(r, p, w), errs,
+                  "dot3")
+            _held(label, F.phase2(alpha, r, ap, dg),
+                  F.phase2_plain(alpha, r, ap, dg), errs, "phase2")
+            _held(label, F.phase3(alpha, beta, r, dg, p, x),
+                  F.phase3_plain(alpha, beta, r, dg, p, x), errs, "phase3")
+            log(f"  dot dot3 phase2 phase3 {label}: bitwise equal")
+            if dt != torch.float64 or nn != n:
+                continue
+            el = r.element_size()
+            cases = {
+                # name: (kernel, plain, library, vectors read + written,
+                #        flops per element)
+                "dot": (lambda: D.dot(p, ap), lambda: D.dot_plain(p, ap),
+                        lambda: torch.dot(p, ap), 2, 2),
+                "dot3": (lambda: D.dot3(r, p, w),
+                         lambda: D.dot3_plain(r, p, w), None, 3, 6),
+                "phase2": (lambda: F.phase2(alpha, r, ap, dg),
+                           lambda: F.phase2_plain(alpha, r, ap, dg), None,
+                           4, 7),
+                "phase3": (lambda: F.phase3(alpha, beta, r, dg, p, x),
+                           lambda: F.phase3_plain(alpha, beta, r, dg, p,
+                                                  x), None, 6, 5),
+            }
+            for name, (kern, plain, lib, vecs, fl) in cases.items():
+                b_ms, b_by = bound_ms(vecs * nn * el, fl * nn, dt)
+                timed[name] = dict(
+                    ms=cold_ms(kern), plain_ms=cold_ms(plain),
+                    library_ms=None if lib is None else cold_ms(lib),
+                    bound_ms=b_ms, bound_by=b_by, bytes=vecs * nn * el)
+    for name, t in timed.items():
+        t["max_abs_err"] = errs[name]
+        lib = ("–" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f}")
+        extra = (f"; stored-slot bound {t['bound_stored_ms']:.4f} ms "
+                 f"({t['stored_bytes']} B, {t['bound_stored_ms'] / t['ms']:.1%})"
+                 if "bound_stored_ms" in t else "")
+        log(f"    {name}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+            f"library {lib}); bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']} ({t['bytes']} B, "
+            f"{t['bytes'] / t['ms'] / 1e6:.1f} GB/s, "
+            f"{t['bound_ms'] / t['ms']:.1%}){extra}")
+    return timed
+
+
+# -------------------------------------------------------------- phase 6
+SINGLE_RUNS = (("vsr", "pallas", "mixed_v3"), ("vsr", "pallas", "fp64"),
+               ("vsr", "xla", "mixed_v3"), ("pipelined", "xla", "mixed_v3"))
+
+
+def _single(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def phase_single_solve(a, dev) -> dict:
+    """``jpcg_solve`` at full size on every requested method, backend and
+    scheme; returns the launches of the calls from the CSR."""
+    import numpy as np
+    import torch
+    from repro_torch import jpcg_solve
+    from repro_torch.core.operators import as_operator
+    from repro_torch.kernels import ops
+
+    launches = {}
+    out = {}
+    for method, backend, scheme in SINGLE_RUNS:
+        kw = dict(method=method, backend=backend, scheme=scheme,
+                  tol=SOLVE_TOL, maxiter=20_000, device=dev)
+        ops.reset_launches()
+        res, call_s = _single(lambda: jpcg_solve(a, **kw))
+        counts = ops.launches()
+        its = res.iterations
+        res_true = residual(a, res.x)
+        if not res.converged or res_true > RESIDUAL_MAX:
+            raise AssertionError(f"{method}/{backend}/{scheme}: converged "
+                                 f"{res.converged} after {its}, true "
+                                 f"residual {res_true:.3e}")
+        if backend == "pallas":
+            # one SpMV per iteration plus init_state's, one dot, phase 2
+            # and phase 3 per iteration: no plain version on this path
+            want = dict.fromkeys(counts, 0)
+            want.update(spmv_ell=its + 1, dot=its, phase2=its, phase3=its)
+        else:
+            want = dict.fromkeys(counts, 0)
+        if counts != want:
+            raise AssertionError(f"{method}/{backend}/{scheme}: launches "
+                                 f"{counts}, expected {want}")
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+        t0 = time.perf_counter()
+        op = (ops.ell_operator_pallas(a, scheme, device=dev)
+              if backend == "pallas" else as_operator(a, scheme, device=dev))
+        pack_s = time.perf_counter() - t0
+        loop, loop_s = _single(lambda: jpcg_solve(op, **kw))
+        # every path is deterministic: the same solve again is the same
+        # solve, bit for bit
+        if loop.iterations != its or not torch.equal(loop.x, res.x):
+            raise AssertionError(f"{method}/{backend}/{scheme}: loop alone "
+                                 f"took {loop.iterations}, the call {its}; "
+                                 f"x equal {torch.equal(loop.x, res.x)}")
+        out[(method, backend, scheme)] = res
+        log(f"  {method}/{backend}/{scheme}: {its} iterations, call "
+            f"{call_s:.3f} s ({call_s / its * 1e3:.3f} ms/iteration); "
+            f"operator build {pack_s:.3f} s; loop alone {loop_s:.3f} s = "
+            f"{loop_s / its * 1e3:.4f} ms/iteration; true residual "
+            f"{res_true:.2e}")
+        if (method, backend, scheme) == SINGLE_RUNS[0]:
+            _, wall, ev = device_profile(lambda: jpcg_solve(op, **kw))
+            busy_ms = sum(t for _, t, _ in ev)
+            n_k = sum(c for _, _, c in ev)
+            log(f"    profile: {n_k} kernels ({n_k / its:.1f}/iteration), "
+                f"device busy {busy_ms:.1f} ms = {busy_ms / its:.4f} "
+                f"ms/iteration = {busy_ms / 1e3 / loop_s:.1%} of the "
+                f"unprofiled loop ({loop_s:.3f} s; {wall:.3f} s profiled)")
+            for key, t, c in sorted(ev, key=lambda e: -e[1])[:8]:
+                log(f"      {t:9.1f} ms {c:7d}x {t / c * 1e3:8.1f} µs  "
+                    f"{key[:80]}")
+    kp = out[("vsr", "pallas", "mixed_v3")]
+    kx = out[("vsr", "xla", "mixed_v3")]
+    pp = out[("pipelined", "xla", "mixed_v3")]
+    if abs(kp.iterations - kx.iterations) > 1:
+        raise AssertionError(f"vsr mixed_v3: pallas {kp.iterations} vs "
+                             f"xla {kx.iterations} iterations")
+    for label, r in (("vsr/xla", kx), ("pipelined/xla", pp)):
+        np.testing.assert_allclose(r.x.cpu().numpy(), kp.x.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6, err_msg=label)
+    log("  mixed_v3: vsr pallas ≡ xla (iterations ±1, x within rtol 1e-4, "
+        "atol 1e-6); pipelined x within the same tolerance")
+    return launches
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if len(sys.argv) > 1:
@@ -512,7 +780,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import _build
-    from repro_torch.kernels import spmv as K
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import poisson_2d
 
     card = card_line()
     log(card)
@@ -523,7 +792,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] {time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
-    for name in ("spmv_sell", "spmv_ellpack"):
+    for name in ("spmv_sell", "spmv_ellpack", "dot", "fused_phase"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
@@ -533,40 +802,64 @@ def main() -> int:
     log(f"[data] bag G={len(bag)} n={[a.shape[0] for a in bag]}"
         f" nnz={[a.nnz for a in bag]} in {time.perf_counter() - t0:.1f} s")
 
+    # the kernels each path must launch
+    paths = {"solve": ("spmv_sell", "spmv_ellpack"),
+             "engine": ("spmv_sell", "spmv_ellpack"),
+             "single": ("spmv_ell", "dot", "phase2", "phase3")}
+    launches = {}
     log("[phase 1] kernels against their plain versions")
     timed = phase_kernels(bag, dev)
-    launches = {}
     log("[phase 2] batched solve")
-    K.reset_launches()
+    ops.reset_launches()
     phase_solve(bag, dev)
-    launches["solve"] = dict(K.LAUNCHES)
+    launches["solve"] = ops.launches()
     log(f"  launches {launches['solve']}")
     log("[phase 3] SolverEngine")
-    K.reset_launches()
+    ops.reset_launches()
     phase_engine(bag, dev)
-    launches["engine"] = dict(K.LAUNCHES)
+    launches["engine"] = ops.launches()
     log(f"  launches {launches['engine']}")
-    for path, counts in launches.items():
-        for name, n in counts.items():
-            if n <= 0:
-                raise AssertionError(f"{name} never launched on the {path} "
-                                     "path")
     log("[phase 4] card against CPU")
     phase_cross_device(dev)
 
+    t0 = time.perf_counter()
+    single = poisson_2d(SINGLE_NX)
+    log(f"[data] poisson_2d({SINGLE_NX}): n={single.shape[0]} "
+        f"nnz={single.nnz} in {time.perf_counter() - t0:.1f} s")
+    log("[phase 5] single-system kernels against their plain versions")
+    timed.update(phase_single_kernels(single, dev))
+    log("[phase 6] single-system solve")
+    launches["single"] = phase_single_solve(single, dev)
+    log(f"  launches {launches['single']}")
+    for path, names in paths.items():
+        for name in names:
+            if launches[path][name] <= 0:
+                raise AssertionError(f"{name} never launched on the {path} "
+                                     "path")
+
+    sources = {"spmv_sell": "spmv_sell.cu", "spmv_ellpack": "spmv_ellpack.cu",
+               "spmv_ell": "spmv_ellpack.cu", "dot": "dot.cu",
+               "dot3": "dot.cu", "phase2": "fused_phase.cu",
+               "phase3": "fused_phase.cu"}
     replaces = {"spmv_sell": "src/repro/kernels/spmv.py:179",
-                "spmv_ellpack": "src/repro/kernels/spmv.py:123"}
+                "spmv_ellpack": "src/repro/kernels/spmv.py:123",
+                "spmv_ell": "src/repro/kernels/spmv.py:68",
+                "dot": "src/repro/kernels/dot.py:60",
+                "dot3": "src/repro/kernels/dot.py:106",
+                "phase2": "src/repro/kernels/fused_phase.py:62",
+                "phase3": "src/repro/kernels/fused_phase.py:106"}
     kernels = []
-    for name in ("spmv_sell", "spmv_ellpack"):
+    for name, src in sources.items():
         t = timed[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces[name],
-            "launches": sum(c[name] for c in launches.values()),
+            "launches": sum(c.get(name, 0) for c in launches.values()),
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms", "bound_stored_ms",
-                                 "library_dtype")}})
+                                 "bound_by", "library_ms")},
+            **{k: t[k] for k in ("bound_stored_ms", "library_dtype")
+               if k in t}})
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,4 @@
-"""Phase-structured JPCG iteration (the torch port of
-:func:`repro.core.phases.vsr_iteration`).
+"""Phase-structured JPCG loop (the torch port of :mod:`repro.core.phases`).
 
 * **Phase 1**: M1 SpMV (``ap = A·p``) then M2 dot (``pap = p·ap``) —
   barrier: ``alpha = rz / pap``.
@@ -8,18 +7,38 @@
   barrier: ``beta = rz'/rz``.
 * **Phase 3**: ``p' = z + β·p`` (M7), ``x' = x + α·p`` (M3).
 
-The batched phases engine (:mod:`repro_torch.core.batch`) runs this on
-``[G, n]`` lanes with a row-wise dot; it is the oracle the stream VM
-(:mod:`repro_torch.core.vm`) is held to bitwise.  Every product and sum
-is its own eager op, so no step fuses into a contracted multiply-add and
-the VM's word-by-word spelling of the same arithmetic lands on the same
-bits.
+The batched phases engine (:mod:`repro_torch.core.batch`) runs
+:func:`vsr_iteration` on ``[G, n]`` lanes with a row-wise dot; it is the
+oracle the stream VM (:mod:`repro_torch.core.vm`) is held to bitwise.
+Every product and sum is its own eager op, so no step fuses into a
+contracted multiply-add and the VM's word-by-word spelling of the same
+arithmetic lands on the same bits.
+
+The single-system loop :func:`jpcg_loop` runs the same iteration, or,
+given ``phase_ops`` (:func:`repro_torch.kernels.ops.make_phase_ops`), one
+dot kernel and one fused kernel per phase.  The reference's
+``lax.while_loop`` becomes a host loop that reads ``rr`` once per
+iteration; every other scalar stays a 0-d device tensor.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["vsr_iteration"]
+from repro_torch.core.precision import PrecisionScheme
+
+__all__ = ["CGState", "jpcg_loop", "init_state", "vsr_iteration"]
+
+
+class CGState(NamedTuple):
+    i: torch.Tensor       # iteration counter (0-d int32)
+    x: torch.Tensor       # current solution
+    r: torch.Tensor       # residual
+    p: torch.Tensor       # search direction
+    rz: torch.Tensor      # (r, z)
+    rr: torch.Tensor      # ‖r‖² — the termination scalar
+    trace: torch.Tensor   # rr per iteration ((maxiter,) or (0,))
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -52,3 +71,70 @@ def vsr_iteration(matvec, diag, x, r, p, rz, *, dot=_dot, with_aux=False):
     if with_aux:
         return x_new, r_new, p_new, rz_new, rr_new, (pap, alpha, beta)
     return x_new, r_new, p_new, rz_new, rr_new
+
+
+def init_state(matvec, diag, b, x0, *, maxiter: int,
+               scheme: PrecisionScheme, with_trace: bool) -> CGState:
+    """Paper Alg. 1 lines 1–5 (the controller's rp = −1 warm-up pass).
+    The dots here are plain ``torch.dot``, as the reference's are
+    ``jnp.dot``."""
+    vd = scheme.vector_dtype
+    b = b.to(vd)
+    x0 = x0.to(vd)
+    r = b - matvec(x0)
+    z = r / diag
+    p = z
+    rz = _dot(r, z)
+    rr = _dot(r, r)
+    trace = torch.zeros(maxiter if with_trace else 0, dtype=vd,
+                        device=b.device)
+    return CGState(i=torch.zeros((), dtype=torch.int32, device=b.device),
+                   x=x0, r=r, p=p, rz=rz, rr=rr, trace=trace)
+
+
+def jpcg_loop(matvec, diag, state: CGState, *, tol: float, maxiter: int,
+              scheme: PrecisionScheme, phase_ops=None) -> CGState:
+    """Run Alg. 1's main loop until ``rr <= tol`` or ``i == maxiter``.
+
+    The predicate is the reference's ``(i < maxiter) & (rr > tol)`` with
+    ``tol`` rounded to ``vector_dtype``, checked before every iteration;
+    ``rr`` is the one value read on the host per iteration.
+
+    ``phase_ops`` — optional ``(dot, phase2, phase3)`` triple (see
+    :func:`repro_torch.kernels.ops.make_phase_ops`): when given, phase 1
+    is the operator's SpMV plus the dot kernel and phases 2 and 3 are one
+    fused kernel each, instead of :func:`vsr_iteration`'s eager ops (the
+    plain oracle, the reference's ``body_jnp``).  The input state is not
+    modified.
+    """
+    vd = scheme.vector_dtype
+    tol_v = float(torch.tensor(tol, dtype=vd))
+
+    def body_plain(x, r, p, rz):
+        return vsr_iteration(matvec, diag, x, r, p, rz)
+
+    def body_kernels(x, r, p, rz):
+        dot, phase2, phase3 = phase_ops
+        # ---- Phase 1: SpMV kernel + dot kernel -> alpha ----
+        ap = matvec(p)
+        pap = dot(p, ap)
+        alpha = rz / pap
+        # ---- Phase 2: ONE fused kernel (M4+M8+M5+M6) -> beta ----
+        r_new, scal = phase2(alpha, r, ap, diag)
+        rr_new, rz_new = scal[0], scal[1]
+        beta = rz_new / rz
+        # ---- Phase 3: ONE fused kernel (M5-recompute+M7+M3) ----
+        p_new, x_new = phase3(alpha, beta, r_new, diag, p, x)
+        return x_new, r_new, p_new, rz_new, rr_new
+
+    body = body_plain if phase_ops is None else body_kernels
+    i = int(state.i)
+    x, r, p, rz, rr = state.x, state.r, state.p, state.rz, state.rr
+    trace = state.trace.clone()
+    while i < maxiter and float(rr) > tol_v:
+        x, r, p, rz, rr = body(x, r, p, rz)
+        if trace.shape[0]:
+            trace[i] = rr
+        i += 1
+    return CGState(i=torch.tensor(i, dtype=torch.int32, device=x.device),
+                   x=x, r=r, p=p, rz=rz, rr=rr, trace=trace)

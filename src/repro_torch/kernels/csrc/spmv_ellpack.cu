@@ -1,5 +1,6 @@
 // Batched banked-ELLPACK SpMV for Hopper (sm_90a).  Replaces the Pallas
-// kernel repro/kernels/spmv.py::spmv_pallas_batched.
+// kernel repro/kernels/spmv.py::spmv_pallas_batched and, launched at G = 1,
+// the single-system ::spmv_pallas.
 //
 //   y[g, i, r] = sum over slabs t = 0 .. T-1, in order, of
 //                tree_sum_e ( vals[g,i,t,e,r] * x_tile[g, tile_cols[g,i,t]][lcols[g,i,t,e,r]] )

@@ -1,8 +1,8 @@
-"""Batched SpMV kernels for Hopper, each beside its plain PyTorch version.
+"""SpMV kernels for Hopper, each beside its plain PyTorch version.
 
 Two hand-written CUDA C++ kernels (``csrc/``, built by
 :mod:`repro_torch.kernels._build` with ``--fmad=false`` for ``sm_90a``)
-replace the two Pallas kernels the batched solver reaches:
+replace the three Pallas SpMV kernels of the JAX package:
 
 * :func:`spmv_sell` replaces ``repro/kernels/spmv.py::spmv_pallas_sell``
   (batched SELL-C-σ; row-ELL is its one-group case).  A row of width w
@@ -15,7 +15,9 @@ replace the two Pallas kernels the batched solver reaches:
   spmv_pallas_batched`` (batched banked ELLPACK).  One block per (lane,
   row block), one thread per row; the slab walk that the TPU ran as a
   sequential grid axis is a loop inside the block, and each slab's x tile
-  is staged in shared memory.
+  is staged in shared memory.  At G = 1 the same kernel is
+  :func:`spmv_ell`, the port of ``spmv_pallas`` (the single-system
+  solver's M1), with a launch count of its own.
 
 Both are bound by bytes on the H100: each stored slot (value + index) is
 read once, x gathered, y written once, at 2 flops per slot — the least
@@ -42,23 +44,21 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from repro_torch.core.precision import PrecisionScheme, get_scheme
-from repro_torch.kernels import _build
+from repro_torch.kernels._launch import (I, LL, P, check_cuda, function,
+                                         on_cpu, raise_on_error)
 
 __all__ = ["spmv_sell", "spmv_sell_plain", "spmv_ellpack",
-           "spmv_ellpack_plain", "LAUNCHES", "reset_launches"]
+           "spmv_ellpack_plain", "spmv_ell", "spmv_ell_plain", "LAUNCHES",
+           "reset_launches"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {"spmv_sell": 0, "spmv_ellpack": 0}
+LAUNCHES: Dict[str, int] = {"spmv_sell": 0, "spmv_ellpack": 0, "spmv_ell": 0}
 
 #: scheme name -> the kernels' template instantiation code.
 _SCHEME_CODE = {"fp64": 0, "mixed_v1": 1, "mixed_v2": 2, "mixed_v3": 3}
 _INDEX_BYTES = {torch.int16: 2, torch.int32: 4}
 #: Width groups one SELL launch carries in its by-value group table.
 _GROUPS_PER_LAUNCH = 32
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
 
 
 def reset_launches() -> None:
@@ -73,29 +73,6 @@ def _scheme_code(scheme: PrecisionScheme) -> int:
         raise NotImplementedError(
             f"no CUDA SpMV instantiation for scheme {scheme.name!r}; the "
             f"kernels cover {sorted(_SCHEME_CODE)}") from None
-
-
-def _library(name: str, argtypes) -> ctypes.CDLL:
-    lib = _build.load(name)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = _I
-    return lib
-
-
-def _raise_on_error(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err != 0:
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
-
-
-def _check_cuda(name: str, device: torch.device, **tensors) -> None:
-    for arg, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, x on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
 
 
 # ------------------------------------------------------------------- SELL
@@ -137,10 +114,8 @@ def spmv_sell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
     ``vector_dtype``.
     """
     scheme = get_scheme(scheme)
-    if x.device.type == "cpu":
+    if on_cpu("spmv_sell", x):
         return spmv_sell_plain(cols, vals, x, groups=groups, scheme=scheme)
-    if x.device.type != "cuda":
-        raise ValueError(f"spmv_sell: unsupported device {x.device}")
     code = _scheme_code(scheme)
     G, n_pad = x.shape
     if cols.dim() != 2 or cols.shape != vals.shape or cols.shape[0] != G:
@@ -158,10 +133,10 @@ def spmv_sell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
         raise ValueError(f"spmv_sell: groups {groups} do not cover "
                          f"n_pad={n_pad}, L={L}")
     x_in = x.to(scheme.spmv_in_dtype).contiguous()
-    _check_cuda("spmv_sell", x.device, cols=cols, vals=vals)
+    check_cuda("spmv_sell", x.device, cols=cols, vals=vals)
     y = torch.empty((G, n_pad), dtype=scheme.spmv_acc_dtype, device=x.device)
-    lib = _library("spmv_sell", [_I, _I, _P, _P, _P, _P, _I, _LL, _I, _I,
-                                 _P, _P, _P, _P, _P])
+    fn = function("spmv_sell", "spmv_sell",
+                  [I, I, P, P, P, P, I, LL, I, I, P, P, P, P, P])
     row0, off, table = 0, 0, []
     for rows, w in groups:
         table.append((row0, rows, w, off))
@@ -176,11 +151,11 @@ def spmv_sell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
             rs = (ctypes.c_int * n)(*(t[1] for t in part))
             ws = (ctypes.c_int * n)(*(t[2] for t in part))
             os_ = (ctypes.c_longlong * n)(*(t[3] for t in part))
-            err = lib.spmv_sell(
+            err = fn(
                 code, _INDEX_BYTES[cols.dtype], cols.data_ptr(),
                 vals.data_ptr(), x_in.data_ptr(), y.data_ptr(), G, L,
                 n_pad, n, r0, rs, ws, os_, stream)
-            _raise_on_error(lib, "spmv_sell", err)
+            raise_on_error("spmv_sell", "spmv_sell", err)
             LAUNCHES["spmv_sell"] += 1
     return y
 
@@ -220,43 +195,84 @@ def spmv_ellpack(tile_cols: torch.Tensor, vals: torch.Tensor,
     (cast to ``spmv_in_dtype`` here).  Returns ``acc_dtype[G, B, R]``.
     """
     scheme = get_scheme(scheme)
-    if x_tiles.device.type == "cpu":
+    if on_cpu("spmv_ellpack", x_tiles):
         return spmv_ellpack_plain(tile_cols, vals, local_cols, x_tiles,
                                   scheme=scheme)
-    if x_tiles.device.type != "cuda":
-        raise ValueError(f"spmv_ellpack: unsupported device {x_tiles.device}")
+    y = _launch_ellpack("spmv_ellpack", tile_cols, vals, local_cols,
+                        x_tiles, scheme)
+    LAUNCHES["spmv_ellpack"] += 1
+    return y
+
+
+def _launch_ellpack(name, tile_cols, vals, local_cols, x_tiles,
+                    scheme: PrecisionScheme) -> torch.Tensor:
+    """Check the batched shapes and launch ``csrc/spmv_ellpack.cu``."""
     code = _scheme_code(scheme)
     G, B, T, E, R = vals.shape
     _, n_ct, C = x_tiles.shape
     if (tuple(tile_cols.shape) != (G, B, T)
             or local_cols.shape != vals.shape or x_tiles.shape[0] != G):
         raise ValueError(
-            f"spmv_ellpack: shapes tile_cols {tuple(tile_cols.shape)}, vals "
+            f"{name}: shapes tile_cols {tuple(tile_cols.shape)}, vals "
             f"{tuple(vals.shape)}, local_cols {tuple(local_cols.shape)}, "
             f"x_tiles {tuple(x_tiles.shape)} do not match")
     if tile_cols.dtype != torch.int32 or local_cols.dtype != torch.int32:
-        raise ValueError("spmv_ellpack: tile_cols/local_cols must be int32")
+        raise ValueError(f"{name}: tile_cols/local_cols must be int32")
     if vals.dtype != scheme.matrix_dtype:
-        raise ValueError(f"spmv_ellpack: vals dtype {vals.dtype} is not the "
+        raise ValueError(f"{name}: vals dtype {vals.dtype} is not the "
                          f"scheme's {scheme.matrix_dtype}")
     if R > 1024:
-        raise ValueError(f"spmv_ellpack: block_rows {R} exceeds the 1024 "
+        raise ValueError(f"{name}: block_rows {R} exceeds the 1024 "
                          "threads of a CUDA block")
     x_in = x_tiles.to(scheme.spmv_in_dtype).contiguous()
     if C * x_in.element_size() > 48 * 1024:
-        raise ValueError(f"spmv_ellpack: a col tile of {C} does not fit "
+        raise ValueError(f"{name}: a col tile of {C} does not fit "
                          "48 KB of shared memory")
-    _check_cuda("spmv_ellpack", x_tiles.device, tile_cols=tile_cols,
-                vals=vals, local_cols=local_cols)
+    check_cuda(name, x_tiles.device, tile_cols=tile_cols, vals=vals,
+               local_cols=local_cols)
     y = torch.empty((G, B, R), dtype=scheme.spmv_acc_dtype,
                     device=x_tiles.device)
-    lib = _library("spmv_ellpack", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _P])
+    fn = function("spmv_ellpack", "spmv_ellpack",
+                  [I, P, P, P, P, P, I, I, I, I, I, I, I, P])
     with torch.cuda.device(x_tiles.device):
-        err = lib.spmv_ellpack(
-            code, tile_cols.data_ptr(), vals.data_ptr(),
-            local_cols.data_ptr(), x_in.data_ptr(), y.data_ptr(), G, B, T,
-            E, R, n_ct, C, torch.cuda.current_stream().cuda_stream)
-    _raise_on_error(lib, "spmv_ellpack", err)
-    LAUNCHES["spmv_ellpack"] += 1
+        err = fn(code, tile_cols.data_ptr(), vals.data_ptr(),
+                 local_cols.data_ptr(), x_in.data_ptr(), y.data_ptr(), G, B,
+                 T, E, R, n_ct, C, torch.cuda.current_stream().cuda_stream)
+    raise_on_error("spmv_ellpack", name, err)
     return y
+
+
+# ------------------------------------------------- single-system ELLPACK
+def spmv_ell_plain(tile_cols: torch.Tensor, vals: torch.Tensor,
+                   local_cols: torch.Tensor, x_tiles: torch.Tensor, *,
+                   scheme) -> torch.Tensor:
+    """:func:`spmv_ellpack_plain` at G = 1: the same tree over E, slabs
+    added in order.  Returns ``acc_dtype[B, R]``."""
+    return spmv_ellpack_plain(tile_cols[None], vals[None], local_cols[None],
+                              x_tiles[None], scheme=scheme)[0]
+
+
+def spmv_ell(tile_cols: torch.Tensor, vals: torch.Tensor,
+             local_cols: torch.Tensor, x_tiles: torch.Tensor, *,
+             scheme) -> torch.Tensor:
+    """Single-system banked-ELLPACK SpMV (the port of ``spmv_pallas``).
+
+    ``tile_cols`` int32[B, T], ``vals`` matrix_dtype[B, T, E, R],
+    ``local_cols`` int32[B, T, E, R], ``x_tiles`` [n_col_tiles, C] (cast
+    to ``spmv_in_dtype`` here).  Returns ``acc_dtype[B, R]``.  On the card
+    it is ``csrc/spmv_ellpack.cu`` launched at G = 1, counted apart from
+    the batched calls.
+    """
+    scheme = get_scheme(scheme)
+    if on_cpu("spmv_ell", x_tiles):
+        return spmv_ell_plain(tile_cols, vals, local_cols, x_tiles,
+                              scheme=scheme)
+    if tile_cols.dim() != 2 or vals.dim() != 4 or x_tiles.dim() != 2:
+        raise ValueError(
+            f"spmv_ell: expected tile_cols [B, T], vals [B, T, E, R], "
+            f"x_tiles [n_col_tiles, C]; got {tuple(tile_cols.shape)}, "
+            f"{tuple(vals.shape)}, {tuple(x_tiles.shape)}")
+    y = _launch_ellpack("spmv_ell", tile_cols[None], vals[None],
+                        local_cols[None], x_tiles[None], scheme)
+    LAUNCHES["spmv_ell"] += 1
+    return y[0]

@@ -74,4 +74,4 @@ def test_explicit_cpu_runs_plain_path(no_card):
     res = jpcg_solve_batched([poisson_2d(4)], device="cpu")
     assert res[0].status == "CONVERGED" and res[0].x.device.type == "cpu"
     assert np.isfinite(res[0].rr)
-    assert K.LAUNCHES == {"spmv_sell": 0, "spmv_ellpack": 0}
+    assert K.LAUNCHES == {"spmv_sell": 0, "spmv_ellpack": 0, "spmv_ell": 0}
