@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py        # full size, all four phases; takes no options
+    python3 chip_smoke.py        # full size, all nine phases; takes no options
 
 1. Kernels against their plain PyTorch versions on the card: the SELL
    kernel in row-ELL form (one group) and multi-group form, the ELLPACK
@@ -40,11 +40,40 @@
    rtol 1e-4, atol 1e-6) and the pipelined x agrees with them.  Each is
    timed as a call from the CSR and as the loop alone on a pre-built
    operator; the mixed_v3 ``pallas`` loop is profiled once.
+7. ``flash_attention`` against its plain version on the card, within a
+   stated tolerance (not bitwise: the kernel sums the softmax over K tiles
+   in its own order): gemma3-1b's attention shapes (BH = 8, S = T = 4,096,
+   D = 256; causal and window 512; bf16 and fp32) and the reference test's
+   small cases (D = 16/32/64/120, S ≠ T, ×30 logits).  A bf16 output is
+   held to one bf16 ulp of the plain version's and must equal the fp32-I/O
+   kernel's output on the widened inputs, rounded, bit for bit.  Timed
+   beside its plain version, ``scaled_dot_product_attention`` (the library
+   yardstick, never called by the port) and its bound (q·k at the inputs'
+   product peak: bf16 tensor cores for bf16, exact in fp32; p·v at fp32),
+   at S = 4,096 and at the prefill_32k shape per sequence (BH = 4,
+   S = 32,768, bf16).
+8. gemma3-1b at full width (999,812,736 fp32 parameters drawn on the card
+   from a seeded generator): ``forward_logits(last_only=True)`` at B = 1,
+   S = 8,192 (the Q-chunked attention), bf16, timed; then the kernel
+   composed into layers 0 (local) and 5 (global) — dense → RoPE → kv
+   heads repeated → ``flash_attention`` → ``wo`` — against the model's
+   ``attention()`` on S = 4,096 normalized hidden states, B = 2, within
+   2e-4 at fp32 and 3e-2 at bf16.
+9. ``DecodeEngine`` on gemma3-1b at full width: bf16, 8 slots, max_len
+   1,024; 10 greedy requests of 8–64 tokens and one of 600 (the 512-slot
+   ring wraps), 32 new tokens each, admitted as slots free.  Prefill
+   ms/token, ms/tick, tokens/s and the tick's device-busy share
+   (``torch.profiler``: device time over the wall time of 8 profiled
+   ticks).  Then at fp32: a greedy continuation equals the teacher-forced
+   rollout of ``forward_logits`` and the 600-token request's first token
+   equals ``forward``'s argmax; the bf16 tokens' agreement with fp32 is
+   printed as a rate.
 
 Launch counters are set to 0 right before the solves of phases 2, 3 and
-6 and read right after; each kernel of a path must have launched on it
-(``dot3`` has no solver path: phase 5 launches it).  Any failed check
-raises.  The last line is the JSON result.
+6 and before phase 8, and read right after; each kernel of a path must
+have launched on it (``dot3`` has no solver path: phase 5 launches it).
+Any failed check raises.  The last line is the JSON result; the line
+before the card's is the LM path's numbers.
 """
 from __future__ import annotations
 
@@ -765,6 +794,410 @@ def phase_single_solve(a, dev) -> dict:
     return launches
 
 
+# -------------------------------------------------------------- phase 7
+BF16_TC_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
+#: peak rate of a product of two operands of this dtype accumulated in fp32:
+#: a bf16 × bf16 product is exact in fp32, so tensor cores may take it; an
+#: fp32 one (TF32 rounds) runs on the CUDA cores
+PRODUCT_FLOPS = {"bfloat16": BF16_TC_FLOPS, "float32": PEAK_FLOPS["float32"]}
+#: a bf16 output is held to one bf16 ulp of the plain version's (an ulp is
+#: 2^-8 to 2^-7 of |want|), plus a floor for values near 0
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+ARCH = "gemma3-1b"
+#: (label, BH, S, T, D, causal, window, dtype, logit scale, tolerance);
+#: the first four are gemma3-1b's attention at S = 4,096 (B = 2 × 4 heads,
+#: the kv head repeated): global layers causal, local layers window 512.
+#: A bf16 case (tolerance None) is held by :func:`_flash_held`.
+FLASH_CASES = (
+    ("gemma/global/bf16", 8, 4096, 4096, 256, True, None, "bfloat16", 1, None),
+    ("gemma/local/bf16", 8, 4096, 4096, 256, True, 512, "bfloat16", 1, None),
+    ("gemma/global/fp32", 8, 4096, 4096, 256, True, None, "float32", 1, 1e-4),
+    ("gemma/local/fp32", 8, 4096, 4096, 256, True, 512, "float32", 1, 1e-4),
+    ("causal/d64", 2, 512, 512, 64, True, None, "float32", 1, 2e-5),
+    ("window32/d32", 2, 256, 256, 32, True, 32, "float32", 1, 2e-5),
+    ("window128/d32", 2, 256, 256, 32, True, 128, "float32", 1, 2e-5),
+    ("noncausal/s128-t256", 1, 128, 256, 64, False, None, "float32", 1, 2e-5),
+    ("bf16/d64", 2, 256, 256, 64, True, None, "bfloat16", 1, None),
+    ("logits-x30/d32", 1, 128, 128, 32, True, None, "float32", 30, 1e-4),
+    ("d16", 2, 128, 128, 16, True, None, "float32", 1, 2e-5),
+    ("d120/window48", 2, 256, 256, 120, True, 48, "float32", 1, 2e-5),
+)
+#: the per-sequence prefill_32k shape, timed only (plus one comparison)
+FLASH_LONG = (("prefill32k/global/bf16", 4, 32768, True, None),
+              ("prefill32k/local/bf16", 4, 32768, True, 512))
+
+
+def live_pairs(s: int, t: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps for one head, positions of q and
+    k both from 0: the work of a kernel that skips masked pairs."""
+    import numpy as np
+    i = np.arange(s, dtype=np.int64)
+    hi = np.minimum(i, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(i - window + 1, 0) if window is not None \
+        else np.zeros(s, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _qkv(bh, s, t, d, dtype, scale, dev, seed):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev)
+               for n in (s, t, t))
+    return (scale * q).to(dtype), (scale * k).to(dtype), v.to(dtype)
+
+
+def _sdpa(q, k, v, causal, window):
+    """The library yardstick: PyTorch's fused attention on the same
+    inputs, ``is_causal`` or a boolean mask (never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+    if window is None:
+        return lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal)
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = (j > i - window) & ((j <= i) if causal else True)
+    return lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                  attn_mask=mask)
+
+
+def _flash_bound(q, k, v, causal, window) -> dict:
+    """Bytes: q, k, v read once, o written once.  Operations: 2·D flops of
+    q·k per live pair at the inputs' product rate, and 2·D of p·v at fp32
+    (p stays fp32).  ``tc_bound_ms`` prices all 4·D at the bf16 tensor-core
+    peak, a note only."""
+    bh, s, d = q.shape
+    pairs = live_pairs(s, k.shape[1], causal, window) * bh
+    flops = 2 * d * pairs
+    dt = str(q.dtype).split(".")[-1]
+    t_bytes = (2 * nbytes(q) + nbytes(k, v)) / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops / PRODUCT_FLOPS[dt] + flops / PEAK_FLOPS["float32"]) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                pairs=pairs, tc_bound_ms=2 * flops / BF16_TC_FLOPS * 1e3)
+
+
+def _flash_held(label, q, k, v, kw, tol) -> float:
+    """Hold the kernel's output against its plain version: fp32 within
+    ``tol``; bf16 within one bf16 ulp of |want| (``BF16_RTOL``, floor
+    ``BF16_ATOL``), and equal, bit for bit, to the fp32-I/O kernel on the
+    widened inputs rounded to bf16 (both share every fp32 operation, so
+    this holds the bf16 loads and the output rounding).  Returns max |Δ|."""
+    import torch
+    from repro_torch.kernels import flash_attn as FA
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if got.dtype != want.dtype or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention {label}: dtype {got.dtype}, "
+                             f"finite {bool(torch.isfinite(got).all())}")
+    if q.dtype == torch.bfloat16:
+        over = diff - (BF16_RTOL * want.float().abs() + BF16_ATOL)
+        if bool((over > 0).any()):
+            raise AssertionError(f"flash_attention {label}: differs from its "
+                                 f"plain version by more than one bf16 ulp "
+                                 f"(max |Δ| {err}, worst excess "
+                                 f"{float(over.max())})")
+        wide = FA.flash_attention(q.float(), k.float(), v.float(), **kw)
+        if not torch.equal(got, wide.to(torch.bfloat16)):
+            n = int((got != wide.to(torch.bfloat16)).sum())
+            raise AssertionError(f"flash_attention {label}: bf16 output "
+                                 f"differs from the fp32-I/O kernel's, "
+                                 f"rounded, at {n} places")
+    elif not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"flash_attention {label}: differs from its "
+                             f"plain version beyond {tol} (max |Δ| {err})")
+    return err
+
+
+def _held_text(tol) -> str:
+    return ("within 1 bf16 ulp, ≡ fp32 kernel rounded" if tol is None
+            else f"within {tol}")
+
+
+def phase_flash(dev):
+    """flash_attention against its plain version on the card, within the
+    stated tolerance, at gemma3-1b's shapes and the reference test's; timed
+    beside its plain version, SDPA and its bound."""
+    import torch
+    from repro_torch.kernels import flash_attn as FA
+    errs, timed = [], {}
+    for n, (label, bh, s, t, d, causal, window, dt, scale, tol) in \
+            enumerate(FLASH_CASES):
+        q, k, v = _qkv(bh, s, t, d, getattr(torch, dt), scale, dev, 70 + n)
+        kw = dict(causal=causal, window=window)
+        err = _flash_held(label, q, k, v, kw, tol)
+        errs.append(err)
+        line = (f"  flash {label:22s} BH={bh} S={s} T={t} D={d}: "
+                f"{_held_text(tol)} (max |Δ| {err:.3e})")
+        if label.startswith("gemma/"):
+            b = _flash_bound(q, k, v, causal, window)
+            t_k = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), reps=5)
+            t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                          reps=3)
+            t_l = cuda_ms(_sdpa(q, k, v, causal, window), reps=5)
+            timed[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, **b)
+            line += (f"; {t_k:.3f} ms (plain {t_p:.3f}, SDPA {t_l:.3f}); "
+                     f"bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
+                     f"({b['bound_ms'] / t_k:.1%}; {b['pairs']} live pairs; "
+                     f"all at the bf16 tensor-core peak "
+                     f"{b['tc_bound_ms']:.4f} ms)")
+        log(line)
+        del q, k, v
+        torch.cuda.empty_cache()
+    for label, bh, s, causal, window in FLASH_LONG:
+        q, k, v = _qkv(bh, s, s, 256, torch.bfloat16, 1, dev, 90)
+        kw = dict(causal=causal, window=window)
+        b = _flash_bound(q, k, v, causal, window)
+        err = _flash_held(label, q, k, v, kw, None)
+        errs.append(err)
+        torch.cuda.empty_cache()
+        t_k = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), reps=2,
+                      warm=1)
+        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                      reps=1, warm=0)
+        t_l = cuda_ms(_sdpa(q, k, v, causal, window), reps=2, warm=1)
+        timed[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, **b)
+        log(f"  flash {label:22s} BH={bh} S={s} D=256: {_held_text(None)} "
+            f"(max |Δ| {err:.3e}); {t_k:.2f} ms (plain {t_p:.2f}, SDPA "
+            f"{t_l:.3f}); bound {b['bound_ms']:.3f} ms by {b['bound_by']} "
+            f"({b['bound_ms'] / t_k:.1%}; all at the bf16 tensor-core peak "
+            f"{b['tc_bound_ms']:.4f} ms)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    head = dict(timed["gemma/global/bf16"], max_abs_err=max(errs),
+                shape="BH=8 S=T=4096 D=256 bf16 causal")
+    return head, timed
+
+
+# -------------------------------------------------------------- phase 8
+LM_SEQ = 8192                       # ≥ CHUNKED_ABOVE: the Q-chunked path
+COMPOSE_SEQ, COMPOSE_BATCH = 4096, 2
+COMPOSE_LAYERS = (0, 5)             # local (window 512), global
+
+
+def _compose(lp, x, cfg, window):
+    """``attention()`` rebuilt around the kernel, as the reference's
+    ``test_matches_model_attention``: dense → RoPE → kv heads repeated →
+    head-major ``flash_attention`` → ``wo``."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    b, s, _ = x.shape
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = A._split_heads(L.dense(lp.attn.wq, x), h, hd)
+    k = A._split_heads(L.dense(lp.attn.wk, x), hk, hd)
+    v = A._split_heads(L.dense(lp.attn.wv, x), hk, hd)
+    cos, sin = L.rope_freqs(torch.arange(s, device=x.device)[None], hd,
+                            cfg.rope_theta)
+    q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    k, v = A._repeat_kv(k, h), A._repeat_kv(v, h)
+    qh, kh, vh = (t.permute(0, 2, 1, 3).reshape(b * h, s, hd).contiguous()
+                  for t in (q, k, v))
+    o = flash_attention(qh, kh, vh, causal=True, window=window)
+    o = o.reshape(b, h, s, hd).permute(0, 2, 1, 3).reshape(b, s, h * hd)
+    return L.dense(lp.attn.wo, o)
+
+
+def phase_lm_forward(dev):
+    """gemma3-1b at full width: parameters on the card from a seeded
+    generator, the count checked; ``forward_logits(last_only=True)`` at
+    S = 8,192; the kernel composed into layers 0 and 5 against
+    ``attention()`` at fp32 and bf16 compute."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, forward_logits, init_params
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import dtype_of, layer_windows
+
+    cfg = get_config(ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = count_params(params)
+    if n != cfg.param_count() or n != 999_812_736:
+        raise AssertionError(f"{ARCH}: {n} parameters, config says "
+                             f"{cfg.param_count()}")
+    log(f"  init_params: {n} parameters (= param_count()), "
+        f"{sum(nbytes(p) for p in params.parameters())} B fp32, "
+        f"{init_s:.2f} s")
+    gen = torch.Generator().manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ), generator=gen).to(dev)
+    fwd = lambda: forward_logits(params, cfg, {"tokens": tokens},
+                                 last_only=True)
+    torch.cuda.reset_peak_memory_stats()
+    logits = fwd()
+    torch.cuda.synchronize()
+    if logits.shape != (1, 1, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"forward_logits: shape {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    walls = []
+    for _ in range(3):
+        _, w = _single(fwd)
+        walls.append(w)
+    fwd_s = min(walls)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  forward_logits(last_only) B=1 S={LM_SEQ} {cfg.dtype}: "
+        f"{fwd_s * 1e3:.1f} ms (of {[round(w * 1e3, 1) for w in walls]}) = "
+        f"{LM_SEQ / fwd_s:.0f} tokens/s; peak {peak / 2**30:.2f} GiB")
+
+    gen = torch.Generator().manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab, (COMPOSE_BATCH, COMPOSE_SEQ),
+                           generator=gen).to(dev)
+    windows = layer_windows(cfg)
+    worst = {}
+    for dt, tol in (("float32", 2e-4), ("bfloat16", 3e-2)):
+        c = dataclasses.replace(cfg, dtype=dt)
+        for l in COMPOSE_LAYERS:
+            lp = params.layers[l]
+            x = L.rmsnorm(lp.ln1, L.embed(params.embed, tokens,
+                                          dtype_of(dt)), cfg.norm_eps)
+            want = A.attention(lp.attn, x, n_heads=c.n_heads,
+                               n_kv_heads=c.n_kv_heads, head_dim=c.hd,
+                               window=windows[l], rope_theta=c.rope_theta)
+            got = _compose(lp, x, c, windows[l])
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            worst[f"layer{l}/{dt}"] = err
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                raise AssertionError(f"layer {l} {dt}: flash composition "
+                                     f"differs from attention() (max |Δ| "
+                                     f"{err}, tolerance {tol})")
+            log(f"  layer {l} (window {windows[l]}) {dt}: dense → RoPE → "
+                f"flash_attention → wo ≡ attention() within {tol} (max |Δ| "
+                f"{err:.3e}; |y| max {float(want.abs().max()):.3e})")
+    del logits
+    return params, dict(forward_ms=fwd_s * 1e3, tokens_per_s=LM_SEQ / fwd_s,
+                        init_s=init_s, peak_bytes=peak, compose=worst)
+
+
+# -------------------------------------------------------------- phase 9
+ENGINE_PROMPTS = 10                 # of 8-64 tokens, plus one of 600
+LONG_PROMPT = 600                   # > the 512-slot ring of the local layers
+MAX_NEW = 32
+FP32_CONTINUATION = 8
+
+
+def _drive(eng, prompts, max_new):
+    """Admit as slots free and tick until every request is done; host-clock
+    times of admission (prefill) and of the ticks, each of which ends in a
+    host read of its tokens."""
+    pending = list(enumerate(prompts))
+    owner, outs = {}, {}
+    prefill_s = tick_s = 0.0
+    ticks = 0
+    while pending or eng.active.any():
+        while pending and (~eng.active).any():
+            rid, prompt = pending.pop(0)
+            t0 = time.perf_counter()
+            owner[eng.add_request(prompt, max_new=max_new)] = rid
+            prefill_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = eng.step()
+        tick_s += time.perf_counter() - t0
+        ticks += 1
+        for slot in out:
+            if not eng.active[slot]:
+                outs[owner[slot]] = list(eng.outputs[slot])
+    return outs, dict(prefill_s=prefill_s, tick_s=tick_s, ticks=ticks)
+
+
+def phase_engine_lm(params, dev):
+    """DecodeEngine on gemma3-1b at full width: bf16 (the published compute
+    and cache dtype) over 11 requests with mid-flight admission; then fp32,
+    whose greedy continuation must equal the teacher-forced rollout."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_logits
+    from repro_torch.serve import DecodeEngine, EngineConfig, bytes_per_slot
+
+    cfg = get_config(ARCH)
+    rng = np.random.default_rng(10)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(n))]
+               for n in rng.integers(8, 65, ENGINE_PROMPTS)]
+    prompts.append([int(t) for t in rng.integers(1, cfg.vocab,
+                                                 LONG_PROMPT)])
+    ecfg = EngineConfig(device=str(dev))
+    eng = DecodeEngine(cfg, params, ecfg)
+    outs, t = _drive(eng, prompts, MAX_NEW)
+    n_prompt = sum(len(p) for p in prompts)
+    n_tick_tokens = sum(len(o) - 1 for o in outs.values())
+    if sorted(outs) != list(range(len(prompts))) or any(
+            len(o) != MAX_NEW for o in outs.values()):
+        raise AssertionError(f"engine: outputs {[len(o) for o in outs.values()]}")
+    ms_tick = t["tick_s"] / t["ticks"] * 1e3
+    row = dict(requests=len(prompts), prompt_tokens=n_prompt,
+               prefill_ms_per_token=t["prefill_s"] / n_prompt * 1e3,
+               ms_per_tick=ms_tick, ticks=t["ticks"],
+               decode_tokens_per_s=n_tick_tokens / t["tick_s"],
+               tokens_per_s=sum(map(len, outs.values()))
+               / (t["prefill_s"] + t["tick_s"]),
+               cache_bytes_per_slot=bytes_per_slot(cfg, ecfg.max_len))
+    # device-busy share of the tick, over one window: a few profiled ticks
+    # of a full engine (every tick decodes all 8 slots), their device time
+    # over their own wall time
+    for p in prompts[:ecfg.batch_slots]:
+        eng.add_request(p[:8], max_new=MAX_NEW)
+    n_prof = 8
+    _, wall, ev = device_profile(lambda: [eng.step() for _ in range(n_prof)])
+    busy = sum(ms for _, ms, _ in ev) / n_prof
+    prof_tick = wall / n_prof * 1e3
+    row.update(busy_ms_per_tick=busy, busy_share=busy / prof_tick,
+               profiled_ms_per_tick=prof_tick,
+               kernels_per_tick=sum(c for _, _, c in ev) / n_prof)
+    log(f"  bf16 engine: {row['requests']} requests ({n_prompt} prompt "
+        f"tokens, one of {LONG_PROMPT}), {t['ticks']} ticks of "
+        f"{ecfg.batch_slots} slots: prefill {row['prefill_ms_per_token']:.2f} "
+        f"ms/token, {ms_tick:.2f} ms/tick = {row['decode_tokens_per_s']:.0f} "
+        f"decode tokens/s ({row['tokens_per_s']:.0f} tokens/s with "
+        f"prefill); {n_prof} profiled ticks: device busy {busy:.2f} ms of "
+        f"{prof_tick:.2f} ms/tick = {busy / prof_tick:.1%}, "
+        f"{row['kernels_per_tick']:.0f} kernels/tick;"
+        f" cache {row['cache_bytes_per_slot']} B/slot")
+    for key, ms, c in sorted(ev, key=lambda e: -e[1])[:6]:
+        log(f"      {ms:9.2f} ms {c:6d}x  {key[:80]}")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    eng32 = DecodeEngine(cfg32, params, EngineConfig(
+        batch_slots=2, cache_dtype="float32", device=str(dev)))
+    short, long_ = prompts[0], prompts[-1]
+    outs32, _ = _drive(eng32, [short, long_], FP32_CONTINUATION)
+    seq, want = list(short), []
+    for _ in range(FP32_CONTINUATION):
+        lg = forward_logits(params, cfg32, {"tokens": torch.tensor(
+            [seq], device=dev)}, last_only=True)
+        want.append(int(torch.argmax(lg[0, -1])))
+        seq.append(want[-1])
+    if outs32[0] != want:
+        raise AssertionError(f"fp32 engine {outs32[0]} != rollout {want}")
+    first = int(torch.argmax(forward_logits(params, cfg32, {
+        "tokens": torch.tensor([long_], device=dev)}, last_only=True)[0, -1]))
+    if outs32[1][0] != first:
+        raise AssertionError(f"fp32 engine's first token after the "
+                             f"{LONG_PROMPT}-token prompt {outs32[1][0]} != "
+                             f"forward's argmax {first}")
+    pairs = [(a, b) for rid in (0, len(prompts) - 1)
+             for a, b in zip(outs[rid], outs32[0 if rid == 0 else 1])]
+    row["bf16_fp32_agreement"] = sum(a == b for a, b in pairs) / len(pairs)
+    log(f"  fp32 engine: {FP32_CONTINUATION}-token greedy continuation == "
+        f"teacher-forced rollout; first token after {LONG_PROMPT} tokens == "
+        f"forward's argmax; bf16 agrees with fp32 on "
+        f"{row['bf16_fp32_agreement']:.1%} of {len(pairs)} tokens")
+    return row
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if len(sys.argv) > 1:
@@ -779,8 +1212,7 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.sparse import poisson_2d
 
     card = card_line()
@@ -788,11 +1220,15 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     dev = torch.device("cuda", 0)
+    # full fp32 products in every plain version (cuBLAS and cuDNN)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] {time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
-    for name in ("spmv_sell", "spmv_ellpack", "dot", "fused_phase"):
+    for name in ("spmv_sell", "spmv_ellpack", "dot", "fused_phase",
+                 "flash_attn"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
@@ -805,7 +1241,8 @@ def main() -> int:
     # the kernels each path must launch
     paths = {"solve": ("spmv_sell", "spmv_ellpack"),
              "engine": ("spmv_sell", "spmv_ellpack"),
-             "single": ("spmv_ell", "dot", "phase2", "phase3")}
+             "single": ("spmv_ell", "dot", "phase2", "phase3"),
+             "lm": ("flash_attention",)}
     launches = {}
     log("[phase 1] kernels against their plain versions")
     timed = phase_kernels(bag, dev)
@@ -831,6 +1268,17 @@ def main() -> int:
     log("[phase 6] single-system solve")
     launches["single"] = phase_single_solve(single, dev)
     log(f"  launches {launches['single']}")
+    log(f"[phase 7] flash_attention against its plain version ({ARCH} "
+        "shapes)")
+    timed["flash_attention"], flash_timed = phase_flash(dev)
+    log(f"[phase 8] {ARCH} at full width: forward, kernel composition")
+    ops.reset_launches()
+    params, lm = phase_lm_forward(dev)
+    launches["lm"] = ops.launches()
+    log(f"  launches {launches['lm']}")
+    log(f"[phase 9] DecodeEngine on {ARCH} at full width")
+    lm["engine"] = phase_engine_lm(params, dev)
+    del params
     for path, names in paths.items():
         for name in names:
             if launches[path][name] <= 0:
@@ -840,14 +1288,15 @@ def main() -> int:
     sources = {"spmv_sell": "spmv_sell.cu", "spmv_ellpack": "spmv_ellpack.cu",
                "spmv_ell": "spmv_ellpack.cu", "dot": "dot.cu",
                "dot3": "dot.cu", "phase2": "fused_phase.cu",
-               "phase3": "fused_phase.cu"}
+               "phase3": "fused_phase.cu", "flash_attention": "flash_attn.cu"}
     replaces = {"spmv_sell": "src/repro/kernels/spmv.py:179",
                 "spmv_ellpack": "src/repro/kernels/spmv.py:123",
                 "spmv_ell": "src/repro/kernels/spmv.py:68",
                 "dot": "src/repro/kernels/dot.py:60",
                 "dot3": "src/repro/kernels/dot.py:106",
                 "phase2": "src/repro/kernels/fused_phase.py:62",
-                "phase3": "src/repro/kernels/fused_phase.py:106"}
+                "phase3": "src/repro/kernels/fused_phase.py:106",
+                "flash_attention": "src/repro/kernels/flash_attn.py:90"}
     kernels = []
     for name, src in sources.items():
         t = timed[name]
@@ -858,8 +1307,10 @@ def main() -> int:
             "launches": sum(c.get(name, 0) for c in launches.values()),
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
-            **{k: t[k] for k in ("bound_stored_ms", "library_dtype")
+            **{k: t[k] for k in ("bound_stored_ms", "library_dtype", "shape")
                if k in t}})
+    lm["flash_attention"] = flash_timed
+    print(json.dumps({"lm": lm}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Carry packed operands and solver state across from numpy.
+"""Carry packed operands, solver state and LM parameters across from numpy.
 
 The JAX package's stacked operands (``StackedRowEll`` / ``StackedSell`` /
 ``StackedEllpack``), its single-system operators and matrices
@@ -9,6 +9,13 @@ every array in them into host numpy.  These helpers read such objects by
 attribute — importing nothing from the JAX package — and return what the
 port's solvers, runners and steppers consume, so one packed operand or
 one mid-flight state can be fed to both packages.
+
+The LM side: :func:`lm_params_to_torch` turns the reference's
+``init_params`` pytree (nested dicts of arrays, the layers stacked on a
+leading ``L`` axis) into the port's
+:class:`~repro_torch.models.transformer.Transformer`, and
+:func:`lm_cache_to_torch` a reference KV cache (``{"ring"|"full":
+AttnCache}``) into the port's.
 """
 from __future__ import annotations
 
@@ -21,11 +28,15 @@ from repro_torch.core.precision import get_scheme
 from repro_torch.core.vm import BatchedVMState
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.ops import EllKernelOperator
+from repro_torch.models.attention import AttnCache
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer
 from repro_torch.sparse.bell import BellMatrix
 from repro_torch.sparse.ellpack import EllpackMatrix
 
 __all__ = ["stacked_to_torch", "vm_state_to_torch", "vm_state_to_numpy",
-           "operator_to_torch", "cg_state_to_torch"]
+           "operator_to_torch", "cg_state_to_torch", "load_tree",
+           "lm_params_to_torch", "lm_cache_to_torch"]
 
 
 def stacked_to_torch(stacked, *, scheme=None, device=None) -> tuple:
@@ -109,3 +120,45 @@ def cg_state_to_torch(state, *, device=None) -> CGState:
     device = resolve_device(device)
     return CGState(*(to_device(getattr(state, f), device)
                      for f in CGState._fields))
+
+
+def _flatten(tree, prefix=""):
+    for key, val in tree.items():
+        if hasattr(val, "items"):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield prefix + key, val
+
+
+def load_tree(module: torch.nn.Module, tree) -> torch.nn.Module:
+    """Load a parameter tree of the reference (nested dicts of arrays; or
+    flat, with dotted keys) into ``module``: each path is a ``state_dict``
+    key.  Strict: a missing or extra key or a wrong shape raises."""
+    module.load_state_dict({k: to_device(v, "cpu")
+                            for k, v in _flatten(tree)}, strict=True)
+    return module
+
+
+def lm_params_to_torch(params, cfg: ModelConfig, *,
+                       device=None) -> Transformer:
+    """The port's LM with the reference's parameter values: a leaf
+    ``layers.<path>`` of shape ``[L, ...]`` becomes ``layers.<l>.<path>``
+    for every layer ``l``; every other path is its own key."""
+    state = {}
+    for name, a in _flatten(params):
+        if name.startswith("layers."):
+            stacked = np.asarray(a)
+            state.update((f"layers.{l}.{name[7:]}", stacked[l])
+                         for l in range(cfg.n_layers))
+        else:
+            state[name] = a
+    return load_tree(Transformer(cfg, device=resolve_device(device)), state)
+
+
+def lm_cache_to_torch(cache, *, device=None) -> dict:
+    """The port's stacked KV caches from the reference's
+    (``{name: AttnCache}``, read by attribute: ``k``, ``v``, ``ring``)."""
+    dev = resolve_device(device)
+    return {name: AttnCache(to_device(c.k, dev), to_device(c.v, dev),
+                            bool(c.ring))
+            for name, c in cache.items()}

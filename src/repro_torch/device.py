@@ -25,7 +25,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     """``a`` — a tensor, or anything numpy reads (host arrays, the JAX
     package's arrays, scalars) — as a tensor on ``device``.  numpy copies
-    into a writable, contiguous array and keeps 0-d scalars 0-d."""
+    into a writable, contiguous array and keeps 0-d scalars 0-d; bfloat16
+    (``ml_dtypes``, which torch does not read) goes through its bits."""
     if not isinstance(a, torch.Tensor):
-        a = torch.from_numpy(np.array(a))
+        a = np.array(a)
+        if a.dtype.name == "bfloat16":
+            a = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+        else:
+            a = torch.from_numpy(a)
     return a.to(device=device, dtype=dtype)

@@ -13,7 +13,7 @@
 The reference's ``interpret`` flag has no counterpart: each wrapper takes
 its plain version for CPU tensors and launches its kernel for CUDA
 tensors.  :func:`launches` and :func:`reset_launches` read and clear the
-launch counts of every kernel of the port.
+launch counts of every kernel of the port, ``flash_attention`` included.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import torch
 from repro_torch.core.precision import PrecisionScheme, get_scheme
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import dot as _dot
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import fused_phase as _fused
 from repro_torch.kernels import spmv as _spmv
 from repro_torch.sparse.csr import CSRMatrix, csr_from_coo
@@ -34,19 +35,19 @@ from repro_torch.sparse.ellpack import EllpackMatrix, csr_to_ellpack
 __all__ = ["EllKernelOperator", "ell_operator_pallas", "bell_operator_pallas",
            "make_phase_ops", "make_dot3", "launches", "reset_launches"]
 
-_COUNTERS = (_spmv.LAUNCHES, _dot.LAUNCHES, _fused.LAUNCHES)
+_KERNEL_MODULES = (_spmv, _dot, _fused, _flash)
 
 
 def launches() -> Dict[str, int]:
     """Launches of every kernel since the last :func:`reset_launches`."""
     out: Dict[str, int] = {}
-    for c in _COUNTERS:
-        out.update(c)
+    for mod in _KERNEL_MODULES:
+        out.update(mod.LAUNCHES)
     return out
 
 
 def reset_launches() -> None:
-    for mod in (_spmv, _dot, _fused):
+    for mod in _KERNEL_MODULES:
         mod.reset_launches()
 
 

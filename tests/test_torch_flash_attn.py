@@ -1,0 +1,149 @@
+"""The port's ``flash_attention`` (its plain version on the CPU) against the
+JAX package's Pallas kernel in interpret mode and its oracle ``mha_ref``.
+
+The sweep is ``tests/test_flash_attn.py``'s, at its tolerances: causal
+block pairs, windows 32 and 128, non-causal with S ≠ T, bf16 in and out,
+×30 logits, and the composition with the model's ``attention()``.  Inputs
+are made with numpy from a seed and handed to both packages.  The CUDA
+kernel itself is held against the plain version on the card by
+``chip_smoke.py`` (phases 7 and 8).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attn import flash_attention as ref_flash
+from repro.kernels.ref import mha_ref
+from repro.models import attention as ref_attn
+
+from repro_torch import convert
+from repro_torch.kernels import flash_attention
+from repro_torch.kernels import ops
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+
+def _qkv(bh, s, t, d, seed=0):
+    r = np.random.default_rng(seed)
+    return tuple(r.standard_normal(shape).astype(np.float32)
+                 for shape in ((bh, s, d), (bh, t, d), (bh, t, d)))
+
+
+def _both(arrays, dtype="float32"):
+    """The same values as JAX and torch arrays (bf16 rounds the same way
+    in both: to nearest even)."""
+    jx = tuple(jnp.asarray(a, getattr(jnp, dtype)) for a in arrays)
+    tt = tuple(torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays)
+    return jx, tt
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _check(q, k, v, tol, dtype="float32", **kw):
+    (jq, jk, jv), (tq, tk, tv) = _both((q, k, v), dtype)
+    got = flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == getattr(torch, dtype) and got.shape == tq.shape
+    want_kernel = ref_flash(jq, jk, jv, interpret=True, **kw)
+    mask_kw = {n: kw[n] for n in ("causal", "window") if n in kw}
+    want_ref = mha_ref(jq, jk, jv, **mask_kw)
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    return got
+
+
+@pytest.mark.parametrize("s,bq,bk", [(256, 128, 128), (256, 64, 256),
+                                     (512, 128, 512), (128, 128, 128)])
+def test_causal_sweep(s, bq, bk):
+    _check(*_qkv(2, s, s, 64), 2e-5, causal=True, block_q=bq, block_k=bk)
+
+
+@pytest.mark.parametrize("window", [32, 128])
+def test_sliding_window(window):
+    _check(*_qkv(2, 256, 256, 32), 2e-5, causal=True, window=window,
+           block_q=64, block_k=64)
+
+
+def test_non_causal_s_ne_t():
+    _check(*_qkv(1, 128, 256, 64), 2e-5, causal=False, block_q=64,
+           block_k=128)
+
+
+def test_bf16_io_fp32_stats():
+    _check(*_qkv(2, 256, 256, 64), 3e-2, dtype="bfloat16", causal=True,
+           block_q=128, block_k=128)
+
+
+def test_numerical_stability_large_logits():
+    q, k, v = _qkv(1, 128, 128, 32)
+    got = _check(30.0 * q, 30.0 * k, v, 1e-4, causal=True, block_q=64,
+                 block_k=64)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("d", [16, 120])
+def test_head_dims(d):
+    """The smallest head dim of the reference's tests and h2o-danube's 120
+    (not a multiple of 32), causal with a window."""
+    _check(*_qkv(2, 128, 128, d, seed=d), 2e-5, causal=True, window=48,
+           block_q=64, block_k=64)
+
+
+def test_contract_matches_reference():
+    """A sequence that is not a multiple of its block is refused in both
+    packages, so a call valid in one is valid in the other."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(1, 96, 96, 16))
+    with pytest.raises(AssertionError):
+        ref_flash(jq, jk, jv, block_q=64, block_k=64, interpret=True)
+    with pytest.raises(ValueError, match="block multiples"):
+        flash_attention(tq, tk, tv, block_q=64, block_k=64)
+
+
+def test_other_devices_raise():
+    """Only a CPU tensor takes the plain version; a tensor elsewhere (here
+    the meta device) is refused, not computed some other way."""
+    q = torch.empty((1, 64, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("n_kv,window", [(4, None), (2, 48)],
+                         ids=["mha", "gqa-window"])
+def test_matches_model_attention(n_kv, window):
+    """End to end, as the reference's ``test_matches_model_attention``:
+    q/k/v built exactly as ``attention()`` builds them (dense, RoPE,
+    head-major, kv heads repeated outside), the kernel, then ``wo`` — equal
+    to the port's ``attention()`` and to the reference's."""
+    d_model, h, hd, s = 64, 4, 16, 128
+    p = ref_attn.init_attention(jax.random.PRNGKey(0), d_model, h, n_kv, hd)
+    x = np.random.default_rng(5).standard_normal(
+        (1, s, d_model)).astype(np.float32)
+    kw = dict(n_heads=h, n_kv_heads=n_kv, head_dim=hd, window=window,
+              rope_theta=10_000.0)
+    want_ref = ref_attn.attention(p, jnp.asarray(x), **kw)
+
+    tp = convert.load_tree(A.Attention(d_model, h, n_kv, hd), p)
+    tx = torch.from_numpy(x)
+    want = A.attention(tp, tx, **kw)
+
+    q = A._split_heads(L.dense(tp.wq, tx), h, hd)
+    k = A._split_heads(L.dense(tp.wk, tx), n_kv, hd)
+    v = A._split_heads(L.dense(tp.wv, tx), n_kv, hd)
+    cos, sin = L.rope_freqs(torch.arange(s)[None], hd)
+    q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    k, v = A._repeat_kv(k, h), A._repeat_kv(v, h)
+    heads = [t.permute(0, 2, 1, 3).reshape(h, s, hd) for t in (q, k, v)]
+    o = flash_attention(*heads, causal=True, window=window, block_q=64,
+                        block_k=64)
+    o = o.reshape(1, h, s, hd).permute(0, 2, 1, 3).reshape(1, s, h * hd)
+    got = L.dense(tp.wo, o)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-4,
+                               rtol=2e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), atol=2e-4,
+                               rtol=2e-4)
+    assert ops.launches()["flash_attention"] == 0     # CPU: the plain version

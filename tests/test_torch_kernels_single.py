@@ -302,7 +302,8 @@ def test_phase_ops_on_cpu_are_the_plain_versions():
     assert torch.equal(xn, x + alpha * p)
     assert set(ops.launches().values()) == {0}
     assert set(ops.launches()) == {"spmv_sell", "spmv_ellpack", "spmv_ell",
-                                   "dot", "dot3", "phase2", "phase3"}
+                                   "dot", "dot3", "phase2", "phase3",
+                                   "flash_attention"}
     # the chunked sums agree with batch.tree_sum spelled by hand
     prod = torch.stack([rn * rn, rn * (rn / dg)])
     assert torch.equal(s, D.chunk_tree(prod))
