@@ -6,42 +6,114 @@
 //                tree_sum_e ( vals[g,i,t,e,r] * x_tile[g, tile_cols[g,i,t]][lcols[g,i,t,e,r]] )
 //
 // One block per (lane g, row block i), one thread per row.  The TPU kernel
-// walks the slabs as a sequential grid axis with y resident in VMEM; Hopper
-// runs blocks in no order, so the slab walk is a loop inside the block and
-// the row sum stays in a register.  Each slab's C-wide x tile is staged in
-// shared memory (C = 512 fp64 is 4 KB) so the gather hits shared memory.
-// The reference sums over E with an unspecified jnp.sum; this kernel and its
-// plain version both fix the order: tree_sum over E, slabs added in order.
+// walks the slabs as a sequential grid axis with y resident in VMEM and the
+// x tile in VMEM; Hopper runs blocks in no order, so the slab walk is a loop
+// inside the block and the row sum stays in a register.  The reference sums
+// over E with an unspecified jnp.sum; this kernel and its plain version both
+// fix the order: tree_sum over E, slabs added in order.
 //
 // Bound: bytes.  Each stored slot is read once (value + int32 local index),
-// the tile ids and x tiles once per slab, y written once; 2 flops per slot.
+// the tile ids once per slab, x and y once per row; 2 flops per slot.  The
+// design keeps the stream moving: no shared memory and no barrier.  x is
+// gathered straight through the read-only path (__ldg): an fp64 x of 10^6
+// rows is 8 MB and stays in the 50 MB L2, where staging a 4 KB tile per slab
+// in shared memory cost a copy of it for every 6 KB of stream and two
+// barriers that drained the loads in flight.  For slabs of up to 8 slots
+// (the stencils'), slab t + 1's values and indices load before slab t's
+// tree, so two slabs' loads are in flight per thread.  The tree over E is
+// unrolled at compile time for the padded width wp = next_pow2(E) <= 32, so
+// its partials stay in registers (repro::tree_sum's stack lives in local
+// memory); above 32 the kernel falls to that generic tree.
 #include "tree_sum.cuh"
 
 namespace {
 
-template <typename V, typename IN, typename ACC>
-__global__ void spmv_ellpack_kernel(const int* __restrict__ tile_cols,
-                                    const V* __restrict__ vals,
-                                    const int* __restrict__ lcols,
-                                    const IN* __restrict__ x_tiles,
-                                    ACC* __restrict__ y, int B, int T, int E,
-                                    int n_ct, int C) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  IN* xs = reinterpret_cast<IN*>(smem);
+// lv[j] += lv[j + h] for h = H, H / 2, .., 1: repro::tree_sum's bracketing
+template <int H, int WP, typename ACC>
+__device__ __forceinline__ void fold(ACC (&lv)[WP]) {
+  if constexpr (H >= 1) {
+#pragma unroll
+    for (int j = 0; j < H; ++j) lv[j] = repro::add_rn(lv[j], lv[j + H]);
+    fold<H / 2, WP>(lv);
+  }
+}
+
+template <int WP, typename V>
+__device__ __forceinline__ void load_slab(const V* __restrict__ vp, const int* __restrict__ cp,
+                                          int E, int R, V (&v)[WP], int (&c)[WP]) {
+#pragma unroll
+  for (int e = 0; e < WP; ++e) {
+    v[e] = e < E ? __ldg(vp + static_cast<long long>(e) * R) : V(0);
+    c[e] = e < E ? __ldg(cp + static_cast<long long>(e) * R) : 0;
+  }
+}
+
+// E <= WP <= 32, WP a power of two.  Up to WP = 8 the next slab's operands
+// load before this slab's tree; wider slabs load their own (two slabs' worth
+// of fp64 operands at WP = 32 would not fit the 255 registers).
+template <int WP, typename V, typename IN, typename ACC>
+__global__ void spmv_ellpack_reg(const int* __restrict__ tile_cols, const V* __restrict__ vals,
+                                 const int* __restrict__ lcols, const IN* __restrict__ x_tiles,
+                                 ACC* __restrict__ y, int B, int T, int E, int n_ct, int C) {
   const int R = blockDim.x;
   const int r = threadIdx.x;
   const long long gi = static_cast<long long>(blockIdx.y) * B + blockIdx.x;
+  const IN* xg = x_tiles + static_cast<long long>(blockIdx.y) * n_ct * C;
+  const long long slab = static_cast<long long>(E) * R;
+  const V* vp = vals + gi * T * slab + r;
+  const int* cp = lcols + gi * T * slab + r;
+  const int* tp = tile_cols + gi * T;
+
+  constexpr bool kAhead = WP <= 8;
+  V v[WP];
+  int c[WP];
+  int tc = 0;
+  if constexpr (kAhead) {
+    tc = __ldg(tp);
+    load_slab<WP>(vp, cp, E, R, v, c);
+  }
   ACC acc = ACC(0);
   for (int t = 0; t < T; ++t) {
-    const int tc = tile_cols[gi * T + t];
-    const IN* xt = x_tiles + (static_cast<long long>(blockIdx.y) * n_ct + tc) * C;
-    __syncthreads();  // every row is done with the previous slab's tile
-    for (int c = r; c < C; c += R) xs[c] = xt[c];
-    __syncthreads();
+    if constexpr (!kAhead) {
+      tc = __ldg(tp + t);
+      load_slab<WP>(vp + t * slab, cp + t * slab, E, R, v, c);
+    }
+    const IN* xt = xg + static_cast<long long>(tc) * C;
+    ACC lv[WP];
+#pragma unroll
+    for (int e = 0; e < WP; ++e) {
+      lv[e] = e < E ? repro::mul_rn(static_cast<ACC>(v[e]), static_cast<ACC>(__ldg(xt + c[e])))
+                    : ACC(0);
+    }
+    if constexpr (kAhead) {
+      // slab t + 1's operands (the last slab reloads its own) before slab t's tree
+      const int tn = min(t + 1, T - 1);
+      tc = __ldg(tp + tn);
+      load_slab<WP>(vp + tn * slab, cp + tn * slab, E, R, v, c);
+    }
+    fold<WP / 2, WP>(lv);
+    acc = repro::add_rn(acc, lv[0]);
+  }
+  y[gi * R + r] = acc;
+}
+
+// E > 32: the generic tree
+template <typename V, typename IN, typename ACC>
+__global__ void spmv_ellpack_wide(const int* __restrict__ tile_cols, const V* __restrict__ vals,
+                                  const int* __restrict__ lcols, const IN* __restrict__ x_tiles,
+                                  ACC* __restrict__ y, int B, int T, int E, int n_ct, int C) {
+  const int R = blockDim.x;
+  const int r = threadIdx.x;
+  const long long gi = static_cast<long long>(blockIdx.y) * B + blockIdx.x;
+  const IN* xg = x_tiles + static_cast<long long>(blockIdx.y) * n_ct * C;
+  ACC acc = ACC(0);
+  for (int t = 0; t < T; ++t) {
+    const IN* xt = xg + static_cast<long long>(__ldg(tile_cols + gi * T + t)) * C;
     const long long base = (gi * T + t) * static_cast<long long>(E) * R + r;
     const ACC s = repro::tree_sum<ACC>(E, [&](int e) {
       const long long q = base + static_cast<long long>(e) * R;
-      return repro::mul_rn(static_cast<ACC>(vals[q]), static_cast<ACC>(xs[lcols[q]]));
+      return repro::mul_rn(static_cast<ACC>(__ldg(vals + q)),
+                           static_cast<ACC>(__ldg(xt + __ldg(lcols + q))));
     });
     acc = repro::add_rn(acc, s);
   }
@@ -52,13 +124,27 @@ template <typename V, typename IN, typename ACC>
 cudaError_t launch(const void* tile_cols, const void* vals, const void* lcols,
                    const void* x_tiles, void* y, int G, int B, int T, int E,
                    int R, int n_ct, int C, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(C) * sizeof(IN);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  dim3 grid(B, G);
-  spmv_ellpack_kernel<V, IN, ACC><<<grid, R, smem, stream>>>(
-      static_cast<const int*>(tile_cols), static_cast<const V*>(vals),
-      static_cast<const int*>(lcols), static_cast<const IN*>(x_tiles),
-      static_cast<ACC*>(y), B, T, E, n_ct, C);
+  const dim3 grid(B, G);
+  const auto tc = static_cast<const int*>(tile_cols);
+  const auto v = static_cast<const V*>(vals);
+  const auto lc = static_cast<const int*>(lcols);
+  const auto x = static_cast<const IN*>(x_tiles);
+  const auto out = static_cast<ACC*>(y);
+  if (E <= 1) {
+    spmv_ellpack_reg<1, V, IN, ACC><<<grid, R, 0, stream>>>(tc, v, lc, x, out, B, T, E, n_ct, C);
+  } else if (E <= 2) {
+    spmv_ellpack_reg<2, V, IN, ACC><<<grid, R, 0, stream>>>(tc, v, lc, x, out, B, T, E, n_ct, C);
+  } else if (E <= 4) {
+    spmv_ellpack_reg<4, V, IN, ACC><<<grid, R, 0, stream>>>(tc, v, lc, x, out, B, T, E, n_ct, C);
+  } else if (E <= 8) {
+    spmv_ellpack_reg<8, V, IN, ACC><<<grid, R, 0, stream>>>(tc, v, lc, x, out, B, T, E, n_ct, C);
+  } else if (E <= 16) {
+    spmv_ellpack_reg<16, V, IN, ACC><<<grid, R, 0, stream>>>(tc, v, lc, x, out, B, T, E, n_ct, C);
+  } else if (E <= 32) {
+    spmv_ellpack_reg<32, V, IN, ACC><<<grid, R, 0, stream>>>(tc, v, lc, x, out, B, T, E, n_ct, C);
+  } else {
+    spmv_ellpack_wide<V, IN, ACC><<<grid, R, 0, stream>>>(tc, v, lc, x, out, B, T, E, n_ct, C);
+  }
   return cudaGetLastError();
 }
 

@@ -4,18 +4,28 @@
 flash_attention`` (the Pallas kernel, body ``_kernel``): online-softmax
 attention on the head-major layout ``[BH, S, D]`` with a causal and/or
 sliding-window mask, whose scores and softmax statistics never leave the
-chip.  The kernel is ``csrc/flash_attn.cu``; its design and what bounds it
-are noted there.
+chip.  The kernels are in ``csrc/flash_attn.cu``, one per input dtype:
+
+* bf16 runs on the tensor cores (``mma.sync`` m16n8k16, fp32
+  accumulation): 8 warps of 16 query rows a block, Q and a two-stage
+  ``cp.async`` ring of 64-key K/V tiles at bf16 in shared memory, the
+  16 × D fp32 accumulator in registers.  q·k is exact in fp32 for bf16
+  inputs; p·v takes p to 16 bits in two bf16 passes
+  (``p_hi = bf16(p)``, ``p_lo = bf16(p − p_hi)``), so its output is
+  within one bf16 ulp of the plain version's.  D is zero-padded to a
+  power of two in shared memory.
+* fp32 stays on the CUDA cores (fp32 FMAs): its inputs cannot take the
+  bf16 tensor cores without rounding.
 
 It keeps the reference's signature and contract: ``S`` must be a multiple
 of ``min(block_q, S)`` and ``T`` of ``min(block_k, T)``, so a call valid in
-one package is valid in the other.  The CUDA kernel picks its own tiles
-(64 × 64) and masks its own ragged edges; ``block_q``/``block_k`` only
-check the contract.  GQA stays outside: the caller repeats the kv heads.
+one package is valid in the other.  The CUDA kernels pick their own tiles
+and mask their own ragged edges; ``block_q``/``block_k`` only check the
+contract.  GQA stays outside: the caller repeats the kv heads.
 
 Parity with the plain version is held to a tolerance, not bit for bit: the
-kernel sums the softmax over K tiles in another order than a plain masked
-softmax, and its ``expf`` and CUDA's ``exp`` may differ in the last ulp.
+kernels sum the softmax over K tiles in another order than a plain masked
+softmax, and the bf16 kernel carries p to 16 bits, not 24.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  :data:`LAUNCHES` counts the
@@ -42,6 +52,8 @@ MAX_HEAD_DIM = 256
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the C entry's private code for bf16 in, fp32 out
+_BF16_IN_FP32_OUT = 2
 
 
 def reset_launches() -> None:
@@ -103,28 +115,52 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      block_q=block_q, block_k=block_k)
     _check(q, k, v, block_q, block_k)
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+    _check_kernel(q, k, v, window, tuple(_DTYPE_CODE))
+    return _launch(_DTYPE_CODE[q.dtype], q, k, v, torch.empty_like(q),
+                   causal, window)
+
+
+def _check_kernel(q, k, v, window, dtypes) -> None:
+    """What the CUDA kernels take beyond the reference's contract."""
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in dtypes:
         raise ValueError(f"flash_attention: q, k, v must share one dtype of "
-                         f"float32/bfloat16, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
-    bh, s, d = q.shape
-    t = k.shape[1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
+                         f"{dtypes}, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.shape[2] > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {q.shape[2]} > "
+                         f"{MAX_HEAD_DIM}")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
     check_cuda("flash_attention", q.device, q=q, k=k, v=v)
-    out = torch.empty_like(q)
-    # the kernel reads a negative width as "no window", and takes it in 64
-    # bits (gemma3's global layers pass 2**24)
+
+
+def _launch(code: int, q, k, v, out, causal, window) -> torch.Tensor:
+    bh, s, d = q.shape
     fn = function("flash_attn", "repro_flash_attention",
                   [I, P, P, P, P, I, I, I, I, I, LL, P])
+    # the kernel reads a negative width as "no window", and takes it in 64
+    # bits (gemma3's global layers pass 2**24)
     with torch.cuda.device(q.device):
-        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), bh, s, t, d, int(causal),
+        err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), bh, s, k.shape[1], d, int(causal),
                  -1 if window is None else int(window),
                  torch.cuda.current_stream().cuda_stream)
     raise_on_error("flash_attn", "flash_attention", err)
     LAUNCHES["flash_attention"] += 1
     return out
 
+
+def _flash_attention_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window=None
+                          ) -> torch.Tensor:
+    """The bf16 kernel's fp32 output before its rounding to bf16 (bf16 q,
+    k, v in, fp32 out): a check of the tensor-core arithmetic against the
+    plain version on the widened inputs, at the fp32 tolerance.  Not a
+    path of the model; on the CPU, the plain version on widened inputs."""
+    if on_cpu("flash_attention", q):
+        return flash_attention_plain(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window)
+    _check(q, k, v, q.shape[1], k.shape[1])
+    _check_kernel(q, k, v, window, (torch.bfloat16,))
+    return _launch(_BF16_IN_FP32_OUT, q, k, v,
+                   torch.empty(q.shape, dtype=torch.float32, device=q.device),
+                   causal, window)

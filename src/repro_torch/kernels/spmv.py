@@ -14,16 +14,20 @@ replace the three Pallas SpMV kernels of the JAX package:
 * :func:`spmv_ellpack` replaces ``repro/kernels/spmv.py::
   spmv_pallas_batched`` (batched banked ELLPACK).  One block per (lane,
   row block), one thread per row; the slab walk that the TPU ran as a
-  sequential grid axis is a loop inside the block, and each slab's x tile
-  is staged in shared memory.  At G = 1 the same kernel is
-  :func:`spmv_ell`, the port of ``spmv_pallas`` (the single-system
-  solver's M1), with a launch count of its own.
+  sequential grid axis is a loop inside the block, with no shared memory
+  and no barrier: x is gathered from its tile through the read-only
+  cache (an fp64 x of 10^6 rows fits the 50 MB L2), the next slab's
+  values and indices load before this slab's tree, and the tree over E
+  is unrolled at compile time for ``next_pow2(E) ≤ 32`` so its partials
+  stay in registers (wider slabs take the generic ``tree_sum``).  At
+  G = 1 the same kernel is :func:`spmv_ell`, the port of ``spmv_pallas``
+  (the single-system solver's M1), with a launch count of its own.
 
 Both are bound by bytes on the H100: each stored slot (value + index) is
 read once, x gathered, y written once, at 2 flops per slot — the least
 time is those bytes over 3.35 TB/s.  Their designs keep the stream at
 the scheme's at-rest width (fp32 values under the mixed schemes, int16
-indices below 2^15 rows) and keep x reads on chip (L2 / shared memory).
+indices below 2^15 rows in SELL) and keep x reads on chip (L2).
 
 Bracketing is part of the contract: the SELL kernel computes
 ``rounded_products`` (``v·x + x·0``) and the fixed halving ``tree_sum``
@@ -225,9 +229,6 @@ def _launch_ellpack(name, tile_cols, vals, local_cols, x_tiles,
         raise ValueError(f"{name}: block_rows {R} exceeds the 1024 "
                          "threads of a CUDA block")
     x_in = x_tiles.to(scheme.spmv_in_dtype).contiguous()
-    if C * x_in.element_size() > 48 * 1024:
-        raise ValueError(f"{name}: a col tile of {C} does not fit "
-                         "48 KB of shared memory")
     check_cuda(name, x_tiles.device, tile_cols=tile_cols, vals=vals,
                local_cols=local_cols)
     y = torch.empty((G, B, R), dtype=scheme.spmv_acc_dtype,

@@ -5,7 +5,7 @@ One row per thread makes the row index *implicit*:
 * rows are grouped into **row blocks** of ``block_rows`` (one CUDA block
   of the ELLPACK kernel each);
 * the columns a row block touches are grouped into **col tiles** of
-  ``col_tile`` (the x tile the kernel stages in shared memory);
+  ``col_tile`` (the x tile a slab's local column indices address);
 * within a (row-block, col-tile) cell every row stores its nonzeros in
   ``ell`` *slots*; arrays are slot-major ``[B, T, ell, block_rows]`` so
   one slot is a coalesced load across the block's rows;
@@ -72,7 +72,7 @@ def csr_to_ellpack(a: CSRMatrix, *, block_rows: int = 256,
     """Convert CSR to slot-major banked ELLPACK.
 
     ``block_rows`` is the ELLPACK kernel's CUDA block size (at most 1024)
-    and ``col_tile`` the x tile it stages in shared memory.
+    and ``col_tile`` the width of the x tile a slab gathers from.
     """
     n_rows, n_cols = a.shape
     B = max(1, -(-n_rows // block_rows))

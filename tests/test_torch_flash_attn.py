@@ -5,8 +5,10 @@ The sweep is ``tests/test_flash_attn.py``'s, at its tolerances: causal
 block pairs, windows 32 and 128, non-causal with S ≠ T, bf16 in and out,
 ×30 logits, and the composition with the model's ``attention()``.  Inputs
 are made with numpy from a seed and handed to both packages.  The CUDA
-kernel itself is held against the plain version on the card by
-``chip_smoke.py`` (phases 7 and 8).
+kernels themselves are held against the plain version on the card by
+``chip_smoke.py`` (phases 7 and 8); :func:`_tc_model` models the bf16
+tensor-core kernel's arithmetic here, so its precision contract is held
+before the card runs it.
 """
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ from repro.models import attention as ref_attn
 from repro_torch import convert
 from repro_torch.kernels import flash_attention
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attn import flash_attention_plain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
@@ -147,3 +150,94 @@ def test_matches_model_attention(n_kv, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want_ref), atol=2e-4,
                                rtol=2e-4)
     assert ops.launches()["flash_attention"] == 0     # CPU: the plain version
+
+
+# ------------------------------------------ the bf16 tensor-core kernel
+#: one bf16 ulp of |want| (2^-8 to 2^-7 of it), plus a floor near 0: the
+#: gate ``chip_smoke.py`` holds the bf16 kernel to
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+
+
+def _tc_model(q, k, v, *, causal, window=None, block_k=64):
+    """The arithmetic of ``csrc/flash_attn.cu``'s ``flash_fwd_bf16`` in
+    plain torch, fp32 out: q·k of bf16 values in fp32 (exact products),
+    scaled by one fp32 constant ``D ** -0.5 · log2(e)`` and masked to
+    −1e30; an online softmax in base 2 over 64-key tiles; p split into
+    ``p_hi = bf16(p)`` and ``p_lo = bf16(p − p_hi)``, each multiplied by
+    bf16 v in fp32, while ``l`` sums the fp32 p.  A test model, not a
+    plain version: the order of each fp32 sum is torch's."""
+    bh, s, d = q.shape
+    t = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    c = float(np.float32(d ** -0.5 * np.log2(np.e)))
+    i = torch.arange(s)[:, None]
+    m = torch.full((bh, s), -1e30)
+    l = torch.zeros((bh, s))
+    o = torch.zeros((bh, s, d))
+    for k0 in range(0, t, block_k):
+        kt, vt = kf[:, k0:k0 + block_k], vf[:, k0:k0 + block_k]
+        j = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        x = torch.einsum("bsd,btd->bst", qf, kt) * c
+        dead = torch.zeros((s, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            dead |= j > i
+        if window is not None:
+            dead |= j <= i - window
+        x = x.masked_fill(dead, -1e30)
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + hi @ vt + lo @ vt
+        m = m_new
+    return o / l.clamp_min(1e-30)[..., None]
+
+
+#: the sweep's shapes at bf16 (bh, s, t, d, causal, window): causal
+#: blocks, windows 32 and 128, S ≠ T, head dims 16 and 120 with a window,
+#: and D = 20 (not a multiple of 8)
+TC_SHAPES = [(2, 256, 256, 64, True, None), (2, 512, 512, 64, True, None),
+             (2, 256, 256, 32, True, 32), (2, 256, 256, 32, True, 128),
+             (1, 128, 256, 64, False, None), (2, 128, 128, 16, True, 48),
+             (2, 128, 128, 120, True, 48), (1, 128, 128, 20, True, None)]
+
+
+@pytest.mark.parametrize(
+    "bh,s,t,d,causal,window", TC_SHAPES,
+    ids=[f"bh{b}-s{s}-t{t}-d{d}-{'causal' if c else 'full'}-w{w}"
+         for b, s, t, d, c, w in TC_SHAPES])
+def test_tensor_core_numerics_model(bh, s, t, d, causal, window):
+    """The bf16 kernel's arithmetic (:func:`_tc_model`) meets the card's
+    gates: rounded to bf16, within one bf16 ulp of the plain version and
+    within 3e-2 of the JAX reference; before rounding, within 2e-5 (the
+    fp32 tolerance of these shapes) of the plain version on the widened
+    inputs."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(bh, s, t, d, seed=d + s),
+                                       "bfloat16")
+    kw = dict(causal=causal, window=window)
+    wide = _tc_model(tq, tk, tv, **kw)
+    got = wide.to(torch.bfloat16).float()
+    want = flash_attention_plain(tq, tk, tv, **kw).float()
+    excess = (got - want).abs() - (BF16_RTOL * want.abs() + BF16_ATOL)
+    assert float(excess.max()) <= 0.0
+    np.testing.assert_allclose(got.numpy(), _f32(mha_ref(jq, jk, jv, **kw)),
+                               atol=3e-2, rtol=3e-2)
+    want_wide = flash_attention_plain(tq.float(), tk.float(), tv.float(),
+                                      **kw)
+    np.testing.assert_allclose(wide.numpy(), want_wide.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_wide_check_entry_on_cpu():
+    """The private bf16-in, fp32-out entry: on the CPU it is the plain
+    version on the widened inputs, and launches nothing."""
+    from repro_torch.kernels.flash_attn import _flash_attention_wide
+    tq, tk, tv = (torch.from_numpy(a).bfloat16()
+                  for a in _qkv(2, 128, 128, 32, seed=3))
+    got = _flash_attention_wide(tq, tk, tv, causal=True, window=48)
+    want = flash_attention_plain(tq.float(), tk.float(), tv.float(),
+                                 causal=True, window=48)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert ops.launches()["flash_attention"] == 0
