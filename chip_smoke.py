@@ -5,18 +5,25 @@
 
 0. The build: every kernel's registers, stack frame and spills from the
    ptxas report; each ELLPACK instantiation with a register tree
-   (``next_pow2(E) ≤ 32``) must have a 0-byte stack frame, each bf16
-   ``flash_attention`` instantiation no spills and ``HMMA`` in its SASS.
+   (``next_pow2(E) ≤ 32``) and each SELL register-tree instantiation
+   (``spmv_sell_kernel<…, false>``, all 8) must have a 0-byte stack frame
+   (SELL: and no spills), each bf16 ``flash_attention`` instantiation no
+   spills and ``HMMA`` in its SASS.
 1. Kernels against their plain PyTorch versions on the card: the SELL
-   kernel in row-ELL form (one group) and multi-group form, the ELLPACK
-   kernel (on Poisson lanes, and on banded bags whose slab width E takes
-   every tree instantiation: 1, 2, 7, 12, 20, and 40 for the generic
-   tree), every faithful scheme, int16 and int32 indices — bitwise equal.
-   Times each kernel, its plain version and an fp64 block-diagonal CSR
-   ``torch.sparse.mm`` of the same bag (a yardstick only, never called by
-   the port; the kernels run mixed_v3), beside two bounds at 3.35 TB/s:
-   ``bound_ms`` for the bag's nonzeros at their at-rest widths, and
-   ``bound_stored_ms`` for every stored slot of the padded layout.
+   kernel with each bag's per-lane table (the main bag, an int16 bag,
+   lanes whose widths differ ~30×, and 2,049-slot hub rows for its
+   generic tree) and in row-ELL form (one group, the shared table), bit
+   for bit; the ELLPACK kernel (on Poisson lanes, and on banded bags
+   whose slab width E takes every tree instantiation: 1, 2, 7, 12, 20,
+   and 40 for the generic tree), bitwise; every faithful scheme, int16
+   and int32 indices.  Times each kernel, its plain version and an fp64
+   block-diagonal CSR ``torch.sparse.mm`` of the same bag (a yardstick
+   only, never called by the port; the kernels run mixed_v3, SELL also
+   fp64), beside bounds at 3.35 TB/s: ``bound_ms`` for the bag's
+   nonzeros at their at-rest widths, ``bound_stored_ms`` for every stored
+   slot of the padded layout and, for SELL, ``bound_streamed_ms`` for the
+   slots below each lane's own width (what it reads), with the slots
+   streamed beside those stored and the kernel on each lane class alone.
 2. The batched solve (``jpcg_solve_batched``) at full size — a bag of
    G = 8 lanes from the large tier of the paper's Table 3 classes (n up to
    250,000, n_pad 262,144): VM ≡ phases bitwise under mixed_v3 (SELL) and
@@ -31,7 +38,8 @@
 5. The single-system kernels against their plain versions on the card,
    bitwise: ``spmv_ell`` (the ELLPACK kernel at G = 1) on
    ``poisson_2d(1000)`` and on the banded widths of phase 1 for every
-   faithful scheme; ``dot``, ``dot3``,
+   faithful scheme; ``dot`` (one launch) at n ∈ {1, 2047, 2048, 2049,
+   10^6} and three calls in a row of different n; ``dot``, ``dot3``,
    ``phase2`` and ``phase3`` at fp32 and fp64 on vectors of n = 10^6 and
    of ragged lengths.  Each is timed at n = 10^6 (fp64; the SpMV at
    mixed_v3) with a cold, clean L2 before every call, beside its plain
@@ -187,20 +195,31 @@ def sass_counts(lib: Path, opcode: str):
 
 def phase_build(libs: dict) -> None:
     """Log every kernel's ptxas report; each ELLPACK register-tree
-    instantiation must keep a 0-byte stack frame, each bf16 flash
+    instantiation must keep a 0-byte stack frame, each SELL register-tree
+    instantiation a 0-byte stack frame and no spills, each bf16 flash
     instantiation must not spill and must run HMMA."""
     faults = []
+    sell = 0
     for source in ("spmv_sell", "spmv_ellpack", "dot", "fused_phase",
                    "flash_attn"):
         for kern, r in ptxas_report(source).items():
+            sell += kern.startswith("spmv_sell_kernel<")
             log(f"  {source}: {kern}: {r.get('registers')} registers, "
                 f"{r.get('stack')} B stack, {r.get('spill_stores')} / "
                 f"{r.get('spill_loads')} B spill stores / loads")
             if kern.startswith("spmv_ellpack_reg<") and r.get("stack") != 0:
                 faults.append(f"{kern}: {r.get('stack')} B stack frame")
+            # the SELL kernel's register-tree instantiations (kWide false)
+            if kern.startswith("spmv_sell_kernel<") and kern.endswith(
+                    "false>") and (r.get("stack") or r.get("spill_stores")
+                                   or r.get("spill_loads")):
+                faults.append(f"{kern}: stack / spills {r}")
             if kern.startswith("flash_fwd_bf16<") and (
                     r.get("spill_stores") or r.get("spill_loads")):
                 faults.append(f"{kern} spills: {r}")
+    if sell != 16:
+        faults.append(f"{sell} spmv_sell_kernel instantiations in the ptxas "
+                      "report, not 16 (4 schemes × 2 index widths × 2 trees)")
     hmma = sass_counts(libs["flash_attn"], "HMMA")
     if hmma is None:
         log("  flash_attn: no cuobjdump in the toolkit; HMMA not checked")
@@ -225,6 +244,11 @@ def smoke_bag():
                                  seed=s) for s in (4, 14)]
             + [powerlaw_spd(131072, alpha=2.1, max_deg=1024, seed=s)
                for s in (5, 6)])
+
+
+#: the smoke bag's lane classes (name, first lane, end)
+BAG_CLASSES = (("poisson_2d(500)", 0, 4), ("diag_dominant_spd, 70 a row", 4, 6),
+               ("powerlaw_spd", 6, 8))
 
 
 def int16_bag():
@@ -256,6 +280,28 @@ def banded(n, w, seed):
 def width_bag(w):
     """Two banded lanes whose stacked slab width E is w."""
     return [banded(3000, w, w), banded(1200, max(1, w // 2), w + 1)]
+
+
+def wide_bag():
+    """Lanes whose widths differ ~30×: 5-wide stencil rows stored in
+    slices padded to a ~160-wide random lane's width."""
+    from repro_torch.sparse import diag_dominant_spd, poisson_2d
+    return [poisson_2d(300), diag_dominant_spd(40000, nnz_per_row=160,
+                                               dominance=1.1, seed=21),
+            poisson_2d(200)]
+
+
+def hub_bag():
+    """64 rows of 2,049 slots (4,096 leaves: 128 a thread, the SELL
+    kernel's generic-tree instantiation) beside a stencil lane."""
+    import numpy as np
+    from repro_torch.sparse import csr_from_coo, poisson_2d
+    n, hubs, w = 4096, 64, 2049
+    i = np.concatenate([np.repeat(np.arange(hubs), w), np.arange(n)])
+    j = np.concatenate([(np.repeat(np.arange(hubs), w)
+                         + np.tile(np.arange(w), hubs)) % n, np.arange(n)])
+    vals = np.random.default_rng(31).standard_normal(i.size)
+    return [csr_from_coo(i, j, vals, (n, n)), poisson_2d(64)]
 
 
 def singular_j(n):
@@ -338,9 +384,17 @@ def _same(a, b) -> bool:
         torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
 
 
+def _bits(a, b) -> bool:
+    """Bit for bit, the sign of a zero included."""
+    import torch
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return a.shape == b.shape and a.dtype == b.dtype and bool(
+        torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
 def phase_kernels(bag, dev):
-    """Every kernel against its plain version on the card, bitwise."""
-    import numpy as np
+    """Every kernel against its plain version on the card, bitwise (SELL
+    and row-ELL bit for bit, zero signs included)."""
     import torch
     from repro_torch.core.batch import stack_operands
     from repro_torch.core.precision import get_scheme
@@ -350,7 +404,8 @@ def phase_kernels(bag, dev):
     fp64 = get_scheme("fp64")
     poisson = bag[:4]
     cases = []   # (label, kernel, csrs, layout, backend)
-    for csrs, tag in ((bag, "main"), (int16_bag(), "int16")):
+    for csrs, tag in ((bag, "main"), (int16_bag(), "int16"),
+                      (wide_bag(), "wide"), (hub_bag(), "hubs")):
         cases.append((f"sell/{tag}", "spmv_sell", csrs, "sell", "xla"))
     cases.append(("rowell/poisson", "spmv_sell", poisson, "rowell", "xla"))
     cases.append(("rowell/int16", "spmv_sell", int16_bag(), "rowell", "xla"))
@@ -378,6 +433,12 @@ def phase_kernels(bag, dev):
                                  f"{mat[1].shape[3]}")
         x = torch.randn((G, n_pad), generator=gen,
                         dtype=torch.float64).to(dev)
+        table = mat[3] if layout == "sell" else None
+        note = ""
+        if table is not None:
+            note = (f", slots streamed {table.streamed_slots(G)} of "
+                    f"{mat[0].numel()} stored, grid {table.grid_x} × {G}"
+                    f"{', generic tree' if table.wide else ''}")
         for name in SCHEMES:
             sch = get_scheme(name)
             in_el = torch.empty((), dtype=sch.spmv_in_dtype).element_size()
@@ -395,6 +456,7 @@ def phase_kernels(bag, dev):
                 kw = dict(scheme=sch)
                 in_b = xt.numel() * in_el
                 stream = (tc, v, lc)
+                same = _same
             else:
                 cols, v64 = mat[0], mat[1]
                 Gd = cols.shape[0]
@@ -404,39 +466,48 @@ def phase_kernels(bag, dev):
                                                         mat[0].shape[1]),)
                 args = (cols, v, x)
                 kern, plain = K.spmv_sell, K.spmv_sell_plain
-                kw = dict(groups=grp, scheme=sch)
+                kw = dict(groups=grp, scheme=sch, table=table)
                 in_b = x.numel() * in_el
                 stream = (cols, v)
+                same = _bits
             y_k = kern(*args, **kw)
             y_p = plain(*args, **kw)
             torch.cuda.synchronize()
             err = float((y_k - y_p).abs().max())
-            if not _same(y_k, y_p):
+            if not same(y_k, y_p):
                 raise AssertionError(
                     f"{label}/{name}: kernel differs from its plain version "
                     f"(max |Δ| {err})")
             idx = "int16" if stream[0].dtype == torch.int16 else "int32"
-            log(f"  {label:18s} {name:8s} {idx}: bitwise equal "
-                f"(G={G}, n_pad={n_pad}, stream {nbytes(*stream)} B, "
-                f"pack {pack_s:.2f} s)")
-            main = (name == "mixed_v3" and label in ("sell/main",
-                                                     "ellpack/poisson"))
-            if not main:
+            how = "bit for bit" if same is _bits else "bitwise"
+            log(f"  {label:18s} {name:8s} {idx}: {how} equal (G={G}, "
+                f"n_pad={n_pad}, stream {nbytes(*stream)} B, pack "
+                f"{pack_s:.2f} s{note})")
+            main = (label in ("sell/main", "ellpack/poisson")
+                    and name in ("mixed_v3", "fp64"))
+            if not main or (name == "fp64" and layout != "sell"):
                 continue
             # bound_ms counts what this bag needs: its nonzeros' values and
             # indices at their at-rest widths, x read and y written once
             # per row.  bound_stored_ms counts every stored slot of the
-            # padded layout (what the kernel streams), x and y as allocated.
+            # padded layout, x and y as allocated; SELL's
+            # bound_streamed_ms the slots below each lane's own width (what
+            # the kernel reads).
             nnz = sum(a.nnz for a in csrs)
             rows = sum(a.shape[0] for a in csrs)
             idx_t = stream[-1] if layout == "ellpack" else stream[0]
-            need = (nnz * (v.element_size() + idx_t.element_size())
-                    + rows * (in_el + y_k.element_size()))
+            slot_b = v.element_size() + idx_t.element_size()
+            need = nnz * slot_b + rows * (in_el + y_k.element_size())
             b_ms, b_by = bound_ms(need, 2 * nnz, sch.spmv_acc_dtype)
             slots = stream[1].numel()
             moved = nbytes(*stream) + in_b + nbytes(y_k)
             st_ms, _ = bound_ms(moved, 2 * slots, sch.spmv_acc_dtype)
             ms = cuda_ms(lambda: kern(*args, **kw))
+            if name == "fp64":      # before mixed_v3 in SCHEMES
+                fp64_t = dict(ms_fp64=ms, bound_ms_fp64=b_ms)
+                log(f"    {kname} fp64: {ms:.3f} ms; bound {b_ms:.4f} ms "
+                    f"for {nnz} nonzeros ({need} B, {b_ms / ms:.1%})")
+                continue
             plain_ms = cuda_ms(lambda: plain(*args, **kw))
             A = block_diag_csr(csrs, n_pad if layout != "ellpack"
                                else n_ct * stacked.col_tile,
@@ -454,7 +525,43 @@ def phase_kernels(bag, dev):
                 f"({moved} B, {moved / ms / 1e6:.1f} GB/s, "
                 f"{st_ms / ms:.1%})")
             del A
+            if table is not None:
+                timed[kname].update(fp64_t)
+                timed[kname].update(_sell_streamed(
+                    kern, args, kw, table, stacked, slot_b, in_b,
+                    nbytes(y_k), sch, ms))
     return timed
+
+
+def _sell_streamed(kern, args, kw, table, stacked, slot_b, in_b, y_b, sch,
+                   ms) -> dict:
+    """The SELL kernel against what it reads: the bound of the slots below
+    each lane's own width (x and y as allocated), and the same kernel on
+    each class of the bag's lanes alone (a table of its own)."""
+    from repro_torch.kernels import spmv as K
+    cols, v, x = args
+    G = x.shape[0]
+    streamed = table.streamed_slots(G)
+    moved = streamed * slot_b + in_b + y_b
+    s_ms, _ = bound_ms(moved, 2 * streamed, sch.spmv_acc_dtype)
+    blocks = int((table.block_map >= 0).sum())
+    log(f"    streamed-slot bound {s_ms:.4f} ms for {streamed} slots "
+        f"({moved} B, {moved / ms / 1e6:.1f} GB/s, {s_ms / ms:.1%}); "
+        f"{blocks} of {table.grid_x * G} blocks live")
+    split = {}
+    for name, g0, g1 in BAG_CLASSES:
+        tc = K.sell_table(kw["groups"], device=x.device,
+                          lane_widths=stacked.lane_widths[g0:g1],
+                          slice_rows=stacked.slice_rows)
+        sub = (cols[g0:g1], v[g0:g1], x[g0:g1])
+        c_ms = median_ms(lambda: kern(*sub, **dict(kw, table=tc)))
+        n = tc.streamed_slots(g1 - g0)
+        split[name] = c_ms
+        log(f"      lanes {g0}-{g1 - 1} ({name}) alone: {c_ms:.4f} ms for "
+            f"{n} slots ({n / c_ms / 1e6:.2f} G slots/s, stream "
+            f"{n * slot_b / c_ms / 1e6:.1f} GB/s)")
+    return dict(bound_streamed_ms=s_ms, streamed_slots=streamed,
+                class_ms=split)
 
 
 # -------------------------------------------------------------- phase 2
@@ -709,6 +816,7 @@ def phase_cross_device(dev):
 # -------------------------------------------------------------- phase 5
 SINGLE_NX = 1000                    # poisson_2d(1000): n = 10^6
 RAGGED_N = (1, 4095, 4097, 1_000_003)   # 1,000,003 is prime
+DOT_N = (1, 2047, 2048, 2049, 10**6)    # around one chunk of 2,048
 
 
 def cold_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -813,6 +921,23 @@ def phase_single_kernels(a, dev):
                   K.spmv_ell_plain(*args, scheme=sch), errs, "spmv_ell")
         log(f"  spmv_ell E={w}: bitwise equal for {len(SCHEMES)} schemes")
 
+    # dot is one launch whose last block finishes the sum: every chunk
+    # count around a whole chunk, then three calls in a row of different
+    # lengths with no synchronisation between (the ticket resets)
+    for dt in (torch.float64, torch.float32):
+        for nn in DOT_N:
+            p, ap = (torch.randn(nn, generator=gen, dtype=dt).to(dev)
+                     for _ in range(2))
+            _held(f"dot/{str(dt)[6:]}/n={nn}", D.dot(p, ap),
+                  D.dot_plain(p, ap), errs, "dot")
+        pairs = [tuple(torch.randn(nn, generator=gen, dtype=dt).to(dev)
+                       for _ in range(2)) for nn in (5000, 2049, 3 * 10**5)]
+        got = [D.dot(p, ap) for p, ap in pairs]
+        for (p, ap), g in zip(pairs, got):
+            _held(f"dot/{str(dt)[6:]}/in a row", g, D.dot_plain(p, ap),
+                  errs, "dot")
+        log(f"  dot {str(dt)[6:]} n={DOT_N} and three calls in a row: "
+            "bitwise equal")
     for dt in (torch.float64, torch.float32):
         for nn in (n,) + RAGGED_N:
             r, ap, p, x, w = (torch.randn(nn, generator=gen, dtype=dt
@@ -1499,7 +1624,9 @@ def main() -> int:
             "launches": sum(c.get(name, 0) for c in launches.values()),
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
-            **{k: t[k] for k in ("bound_stored_ms", "library_dtype", "shape")
+            **{k: t[k] for k in ("bound_stored_ms", "bound_streamed_ms",
+                                 "streamed_slots", "class_ms", "ms_fp64",
+                                 "bound_ms_fp64", "library_dtype", "shape")
                if k in t}})
     lm["flash_attention"] = flash_timed
     print(json.dumps({"lm": lm}), flush=True)

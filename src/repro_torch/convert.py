@@ -28,6 +28,7 @@ from repro_torch.core.precision import get_scheme
 from repro_torch.core.vm import BatchedVMState
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.ops import EllKernelOperator
+from repro_torch.kernels.spmv import sell_table
 from repro_torch.models.attention import AttnCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
@@ -42,8 +43,11 @@ __all__ = ["stacked_to_torch", "vm_state_to_torch", "vm_state_to_numpy",
 def stacked_to_torch(stacked, *, scheme=None, device=None) -> tuple:
     """The matvec operand tuple of a stacked bag.
 
-    * sliced-ELL (has ``iperm``): ``(cols, vals, iperm)``, ``iperm`` as
-      int64 for ``torch.gather``;
+    * sliced-ELL (has ``iperm``): ``(cols, vals, iperm, table)``, ``iperm``
+      as int64 for ``torch.gather``, ``table`` the kernel's
+      :class:`~repro_torch.kernels.spmv.SellTable`: per lane from the
+      port's ``lane_widths``, shared (every lane at the stored widths) for
+      a stacked bag without them, as the reference's;
     * row-ELL (has ``cols``): ``(cols, vals)``;
     * ELLPACK (has ``tile_cols``): ``(tile_cols, vals, local_cols)``, the
       values cast to ``scheme.matrix_dtype`` (the ELLPACK stacker keeps
@@ -51,9 +55,13 @@ def stacked_to_torch(stacked, *, scheme=None, device=None) -> tuple:
     """
     device = resolve_device(device)
     if hasattr(stacked, "iperm"):
+        lane_widths = getattr(stacked, "lane_widths", None)
         return (to_device(stacked.cols, device),
                 to_device(stacked.vals, device),
-                to_device(stacked.iperm, device, torch.int64))
+                to_device(stacked.iperm, device, torch.int64),
+                sell_table(stacked.groups, device=device,
+                           lane_widths=lane_widths,
+                           slice_rows=stacked.slice_rows))
     if hasattr(stacked, "tile_cols"):
         dtype = None if scheme is None else scheme.matrix_dtype
         return (to_device(stacked.tile_cols, device),

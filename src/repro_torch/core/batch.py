@@ -40,7 +40,7 @@ from repro_torch.core.metrics import (advance_status, finalize_status,
 from repro_torch.core.phases import vsr_iteration
 from repro_torch.core.precision import PrecisionScheme, get_scheme
 from repro_torch.device import resolve_device
-from repro_torch.kernels.spmv import spmv_ellpack, spmv_sell
+from repro_torch.kernels.spmv import sell_table, spmv_ellpack, spmv_sell
 from repro_torch.sparse.csr import CSRMatrix, csr_from_coo
 from repro_torch.sparse.ellpack import csr_to_ellpack
 from repro_torch.sparse.stacking import (choose_layout, stack_ellpack,
@@ -122,12 +122,15 @@ def batched_matvec_rowell(cols, vals, x, *,
 
 
 def batched_matvec_sell(cols, vals, iperm, x, *, groups,
-                        scheme: PrecisionScheme) -> torch.Tensor:
+                        scheme: PrecisionScheme, table=None) -> torch.Tensor:
     """Batched SpMV over stacked SELL-C-σ lanes: the kernel's sorted-order
     result un-permuted by ``iperm`` (int64 ``[G, n_pad]``) and cast to
-    ``vector_dtype``.  Bit-identical to :func:`batched_matvec_rowell` on
-    the same matrix."""
-    y_sorted = spmv_sell(cols, vals, x, groups=groups, scheme=scheme)
+    ``vector_dtype``; ``table`` the operand's
+    :class:`~repro_torch.kernels.spmv.SellTable` (each lane read at its
+    own widths).  Equal to :func:`batched_matvec_rowell` on the same
+    matrix up to the sign of an all-zero row sum."""
+    y_sorted = spmv_sell(cols, vals, x, groups=groups, scheme=scheme,
+                         table=table)
     return torch.gather(y_sorted, 1, iperm).to(scheme.vector_dtype)
 
 
@@ -151,9 +154,10 @@ def _matvec_factory(*, backend, scheme, layout=None, groups=None,
     """``matvec_of(mat) -> matvec`` closure for one backend + bucket shape,
     shared by the solve runners, the serving stepper and the serving
     warm-up so every path computes the same M1.  ``layout``: ``"rowell"``
-    (``mat = (cols, vals)``), ``"sell"`` (``(cols, vals, iperm)`` with
-    static ``groups``) or ``"ellpack"`` (``(tile_cols, vals,
-    local_cols)``)."""
+    (``mat = (cols, vals)``), ``"sell"`` (``(cols, vals, iperm, table)``
+    with static ``groups``; ``table`` the
+    :class:`~repro_torch.kernels.spmv.SellTable`) or ``"ellpack"``
+    (``(tile_cols, vals, local_cols)``)."""
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
     layout = layout or ("rowell" if backend == "xla" else "ellpack")
@@ -163,9 +167,10 @@ def _matvec_factory(*, backend, scheme, layout=None, groups=None,
                              "signature of the stacked operand")
 
         def matvec_of(mat):
-            cols, vals, iperm = mat
+            cols, vals, iperm, table = mat
             return lambda x: batched_matvec_sell(cols, vals, iperm, x,
-                                                 groups=groups, scheme=scheme)
+                                                 groups=groups, scheme=scheme,
+                                                 table=table)
     elif backend == "xla" and layout == "rowell":
         def matvec_of(mat):
             cols, vals = mat
@@ -348,7 +353,9 @@ def stack_operands(csrs: Sequence[CSRMatrix], *, backend: str, layout: str,
 
     Returns ``(mat, stacked, groups, n_col_tiles, bucket_dims)``: ``mat``
     the tensors the matvec consumes (SELL ``iperm`` as int64 for
-    ``torch.gather``), ``stacked`` the host stacker's result."""
+    ``torch.gather``, then the per-lane
+    :class:`~repro_torch.kernels.spmv.SellTable` built from the lane
+    widths), ``stacked`` the host stacker's result."""
     def dev(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=device, dtype=dtype)
@@ -356,7 +363,10 @@ def stack_operands(csrs: Sequence[CSRMatrix], *, backend: str, layout: str,
     if layout == "sell":
         stacked = stack_sell(csrs, bucket=bucket, scheme=scheme)
         mat = (dev(stacked.cols), dev(stacked.vals),
-               dev(stacked.iperm, torch.int64))
+               dev(stacked.iperm, torch.int64),
+               sell_table(stacked.groups, device=device,
+                          lane_widths=stacked.lane_widths,
+                          slice_rows=stacked.slice_rows))
         return (mat, stacked, stacked.groups, None,
                 (stacked.padded_rows,
                  *(d for rw in stacked.groups for d in rw)))

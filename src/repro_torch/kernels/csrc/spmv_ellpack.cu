@@ -28,16 +28,6 @@
 
 namespace {
 
-// lv[j] += lv[j + h] for h = H, H / 2, .., 1: repro::tree_sum's bracketing
-template <int H, int WP, typename ACC>
-__device__ __forceinline__ void fold(ACC (&lv)[WP]) {
-  if constexpr (H >= 1) {
-#pragma unroll
-    for (int j = 0; j < H; ++j) lv[j] = repro::add_rn(lv[j], lv[j + H]);
-    fold<H / 2, WP>(lv);
-  }
-}
-
 template <int WP, typename V>
 __device__ __forceinline__ void load_slab(const V* __restrict__ vp, const int* __restrict__ cp,
                                           int E, int R, V (&v)[WP], int (&c)[WP]) {
@@ -91,7 +81,7 @@ __global__ void spmv_ellpack_reg(const int* __restrict__ tile_cols, const V* __r
       tc = __ldg(tp + tn);
       load_slab<WP>(vp + tn * slab, cp + tn * slab, E, R, v, c);
     }
-    fold<WP / 2, WP>(lv);
+    repro::fold<WP / 2, WP>(lv);
     acc = repro::add_rn(acc, lv[0]);
   }
   y[gi * R + r] = acc;

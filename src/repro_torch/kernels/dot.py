@@ -12,9 +12,12 @@ tile of lane partials across a sequential grid; Hopper has no such grid,
 so the sum is :func:`chunk_tree`: the products, padded with +0, are cut
 into chunks of :data:`CHUNK`, each chunk is reduced by the halving
 ``tree_sum`` of :mod:`repro_torch.core.batch` (one CUDA block each), and
-the chunk sums by the same tree (a second launch).  No floating-point
-atomics, so a kernel's result is the same on every run and equal bit for
-bit to its plain version.  Bound by bytes: each input is read once.
+the chunk sums by the same tree.  :func:`dot` is one launch: the block
+that finishes last (an integer ticket on a counter the wrapper keeps per
+device and stream) reduces the chunk sums; :func:`dot3` reduces them in a
+second launch.  No floating-point atomics, so a kernel's result is the
+same on every run and equal bit for bit to its plain version.  Bound by
+bytes: each input is read once.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  :data:`LAUNCHES` counts the
@@ -40,6 +43,9 @@ CHUNK = 2048
 LAUNCHES: Dict[str, int] = {"dot": 0, "dot3": 0}
 
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1}
+
+#: (device index, stream) -> dot's ticket counter, 0 between calls.
+_TICKETS: Dict[tuple, torch.Tensor] = {}
 
 
 def reset_launches() -> None:
@@ -92,10 +98,16 @@ def dot(a: torch.Tensor, b: torch.Tensor, *, acc_dtype=None) -> torch.Tensor:
     n = a.shape[0]
     part = torch.empty(n_chunks(n), dtype=acc, device=a.device)
     out = torch.empty((), dtype=acc, device=a.device)
-    fn = function("dot", "repro_dot", [I, P, P, LL, P, P, P])
+    fn = function("dot", "repro_dot", [I, P, P, LL, P, P, P, P])
     with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        key = (a.device.index, stream)
+        ticket = _TICKETS.get(key)
+        if ticket is None:
+            ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                                 device=a.device)
         err = fn(code, a.data_ptr(), b.data_ptr(), n, part.data_ptr(),
-                 out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                 out.data_ptr(), ticket.data_ptr(), stream)
     raise_on_error("dot", "dot", err)
     LAUNCHES["dot"] += 1
     return out

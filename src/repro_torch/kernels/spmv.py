@@ -5,12 +5,17 @@ Two hand-written CUDA C++ kernels (``csrc/``, built by
 replace the three Pallas SpMV kernels of the JAX package:
 
 * :func:`spmv_sell` replaces ``repro/kernels/spmv.py::spmv_pallas_sell``
-  (batched SELL-C-σ; row-ELL is its one-group case).  A row of width w
-  gets min(next_pow2(w), 32) threads whose partial trees fold in shared
-  memory, so hub rows of skewed matrices are not one serial chain; x is
-  gathered through the read-only cache because an fp64 lane of the main
-  path's 2^18 rows (2 MB) cannot sit in a block's shared memory, while a
-  bag of lanes fits the 50 MB L2.
+  (batched SELL-C-σ; row-ELL is its one-group case).  The stored layout
+  pads slice k of every lane to the widest lane's width; a
+  :class:`SellTable` built once per pack gives the kernel each lane's own
+  width per slice, so it reads only those slots, and interleaves the
+  lanes' blocks.  A row of lane width w gets clamp(next_pow2(w) / 32, 1,
+  32) threads, each folding its leaves in registers, the threads'
+  partials by warp shuffles and one shared-memory exchange, so hub rows of
+  skewed matrices are not one serial chain and stencil rows take one
+  thread each; x is gathered through the read-only cache because an fp64
+  lane of the main path's 2^18 rows (2 MB) cannot sit in a block's shared
+  memory, while a bag of lanes fits the 50 MB L2.
 * :func:`spmv_ellpack` replaces ``repro/kernels/spmv.py::
   spmv_pallas_batched`` (batched banked ELLPACK).  One block per (lane,
   row block), one thread per row; the slab walk that the TPU ran as a
@@ -31,10 +36,13 @@ indices below 2^15 rows in SELL) and keep x reads on chip (L2).
 
 Bracketing is part of the contract: the SELL kernel computes
 ``rounded_products`` (``v·x + x·0``) and the fixed halving ``tree_sum``
-over the width, so it is bitwise equal to its plain version and to the
-JAX reference; the ELLPACK kernel fixes the order the reference leaves
-to ``jnp.sum`` (tree over E, slabs added in order), equal bitwise to its
-plain version and within ``_MV_RTOL`` of JAX.
+over the next power of two of the lane's width (slots past that width
+are +0 leaves), so it is bitwise equal to its plain version given the
+same table, and equal to the JAX reference up to the sign of an all-zero
+sum (the reference's wider tree adds +0 at its top levels); the ELLPACK
+kernel fixes the order the reference leaves to ``jnp.sum`` (tree over E,
+slabs added in order), equal bitwise to its plain version and within
+``_MV_RTOL`` of JAX.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  :data:`LAUNCHES` counts the
@@ -42,18 +50,19 @@ launches of each kernel (one per launch, nowhere else).
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Sequence, Tuple
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.precision import PrecisionScheme, get_scheme
 from repro_torch.kernels._launch import (I, LL, P, check_cuda, function,
                                          on_cpu, raise_on_error)
 
-__all__ = ["spmv_sell", "spmv_sell_plain", "spmv_ellpack",
-           "spmv_ellpack_plain", "spmv_ell", "spmv_ell_plain", "LAUNCHES",
-           "reset_launches"]
+__all__ = ["spmv_sell", "spmv_sell_plain", "SellTable", "sell_table",
+           "spmv_ellpack", "spmv_ellpack_plain", "spmv_ell",
+           "spmv_ell_plain", "LAUNCHES", "reset_launches"]
 
 #: Kernel launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmv_sell": 0, "spmv_ellpack": 0, "spmv_ell": 0}
@@ -61,8 +70,16 @@ LAUNCHES: Dict[str, int] = {"spmv_sell": 0, "spmv_ellpack": 0, "spmv_ell": 0}
 #: scheme name -> the kernels' template instantiation code.
 _SCHEME_CODE = {"fp64": 0, "mixed_v1": 1, "mixed_v2": 2, "mixed_v3": 3}
 _INDEX_BYTES = {torch.int16: 2, torch.int32: 4}
-#: Width groups one SELL launch carries in its by-value group table.
-_GROUPS_PER_LAUNCH = 32
+#: Threads of one SELL block (``kThreads`` in ``csrc/spmv_sell.cu``), the
+#: most threads a row gets, and the fewest leaves a thread takes while a
+#: row has them: a row of padded width wp gets
+#: S = clamp(wp / SELL_MIN_LEAVES, 1, SELL_MAX_SUBSETS) threads.
+SELL_THREADS = 256
+SELL_MAX_SUBSETS = 32
+SELL_MIN_LEAVES = 32
+#: Leaves per thread the SELL kernel folds in registers (``kRegLeaves``);
+#: a table with more takes the kernel's generic-tree instantiation.
+SELL_REG_LEAVES = 64
 
 
 def reset_launches() -> None:
@@ -80,46 +97,227 @@ def _scheme_code(scheme: PrecisionScheme) -> int:
 
 
 # ------------------------------------------------------------------- SELL
+def _pow2(w: np.ndarray) -> np.ndarray:
+    """next_pow2(w) elementwise, 1 for w <= 1."""
+    w = np.maximum(np.asarray(w, np.int64), 1)
+    return np.left_shift(1, np.ceil(np.log2(w)).astype(np.int64))
+
+
+@dataclasses.dataclass(frozen=True)
+class SellTable:
+    """The SELL kernel's launch table: which slots of which rows each block
+    reads, built on the host once per pack and kept on the device.
+
+    ``entries`` int64[E, 8] holds per entry ``(row0, rows, width, S,
+    block0, base, stride, leaves)``: sorted rows ``row0 .. row0 + rows``
+    of one lane read ``width`` slots each (their lane's own width, ≤ the
+    stored width), with S threads a row (:func:`_subsets`) and
+    ``leaves`` = next_pow2(width) / S per thread; slot j of the entry's row
+    lr sits at flat ``base + j·stride + lr``.  An entry is one shared
+    width group intersected with one run of slices of equal lane width.
+    ``block_map`` int32[map_rows, grid_x] gives each block's entry (-1
+    past the lane's own blocks); ``map_rows`` is G for a per-lane table
+    and 1 for a shared one (every lane at the stored widths: row-ELL, or
+    an operand packed without lane widths).  ``grid_x`` (the most blocks
+    a lane needs), ``wide``, ``slots`` (slots read per launch: per lane
+    for a shared table, over all lanes for a per-lane one) are host
+    values, so a launch reads nothing back from the device.
+    ``lane_widths`` int32[G, n_slices] (None when shared) is what the
+    plain version needs; ``groups`` the stored geometry the entries
+    address, checked against the operand at every launch.
+    """
+
+    groups: Tuple[Tuple[int, int], ...]
+    entries: torch.Tensor
+    block_map: torch.Tensor
+    grid_x: int
+    wide: bool
+    slots: int
+    lane_widths: Optional[torch.Tensor] = None
+    slice_rows: int = 0
+
+    @property
+    def shared(self) -> bool:
+        return self.lane_widths is None
+
+    def streamed_slots(self, lanes: int) -> int:
+        """Slots one launch over ``lanes`` lanes reads."""
+        return self.slots * lanes if self.shared else self.slots
+
+
+def _subsets(width: np.ndarray) -> np.ndarray:
+    """Threads per row: clamp(next_pow2(w) / SELL_MIN_LEAVES, 1,
+    SELL_MAX_SUBSETS); 1 for an empty row.  One leaf a thread (S =
+    next_pow2(w)) would give a stencil row 8 threads for its 5 slots and
+    a barrier to fold them; with up to 32 leaves a thread the row's
+    threads stay few and their loads many."""
+    return np.clip(_pow2(width) // SELL_MIN_LEAVES, 1, SELL_MAX_SUBSETS)
+
+
+def _group_geometry(groups):
+    """Per group: first sorted row, flat offset, rows and stored width."""
+    rows = np.array([r for r, _ in groups], np.int64)
+    widths = np.array([w for _, w in groups], np.int64)
+    row0 = np.concatenate([[0], np.cumsum(rows)[:-1]])
+    off = np.concatenate([[0], np.cumsum(rows * widths)[:-1]])
+    return row0, off, rows, widths
+
+
+def sell_table(groups: Sequence[Tuple[int, int]], *, device,
+               lane_widths: Optional[np.ndarray] = None,
+               slice_rows: int = 0) -> SellTable:
+    """The :class:`SellTable` of a stacked SELL operand.
+
+    ``lane_widths`` int[G, n_slices] (``StackedSell.lane_widths``, slices
+    of ``slice_rows`` sorted rows) gives each lane its own width per slice;
+    None gives the shared table, every lane at the stored group widths."""
+    groups = tuple((int(r), int(w)) for r, w in groups)
+    n_pad = sum(r for r, _ in groups)
+    g_row0, g_off, g_rows, g_w = _group_geometry(groups)
+    if lane_widths is None:
+        lane = np.zeros(len(groups), np.int64)
+        row0, rows, width = g_row0, g_rows, g_w
+        base, stride = g_off, g_rows
+    else:
+        lw = np.asarray(lane_widths, np.int64)
+        C = int(slice_rows)
+        G, n_slices = lw.shape
+        if C < 1 or n_slices != -(-n_pad // C):
+            raise ValueError(f"lane_widths {lw.shape} do not match n_pad="
+                             f"{n_pad} at slice_rows={slice_rows}")
+        # the group of each slice (groups hold whole slices)
+        s_group = np.searchsorted(np.cumsum(g_rows), np.arange(n_slices) * C,
+                                  side="right")
+        if (lw > g_w[s_group][None]).any():
+            raise ValueError("a lane width exceeds its stored group width")
+        new = np.ones((G, n_slices), bool)
+        new[:, 1:] = ((s_group[1:] != s_group[:-1])[None]
+                      | (lw[:, 1:] != lw[:, :-1]))
+        lane, s0 = np.nonzero(new)                     # run starts, lane-major
+        flat = lane * n_slices + s0
+        s1 = np.append(flat[1:], G * n_slices) - lane * n_slices
+        row0 = s0 * C
+        rows = np.minimum(s1 * C, n_pad) - row0
+        width = lw[lane, s0]
+        k = s_group[s0]
+        base = g_off[k] + row0 - g_row0[k]
+        stride = g_rows[k]
+    S = _subsets(width)
+    leaves = np.where(width > 0, _pow2(width) // S, 0)
+    nb = -(-rows // (SELL_THREADS // S))
+    ends = np.cumsum(nb)
+    n_lanes = int(lane.max()) + 1
+    lane_start = np.zeros(n_lanes + 1, np.int64)      # blocks before each lane
+    np.maximum.at(lane_start, lane + 1, ends)
+    lane_start = np.maximum.accumulate(lane_start)
+    block0 = ends - nb - lane_start[lane]
+    lane_blocks = np.diff(lane_start)
+    grid_x = int(lane_blocks.max())
+    bmap = np.full((n_lanes, grid_x), -1, np.int32)
+    e = np.repeat(np.arange(len(nb)), nb)
+    bmap[lane[e], block0[e] + np.arange(len(e)) - (ends - nb)[e]] = e
+    entries = np.stack([row0, rows, width, S, block0, base, stride, leaves],
+                       axis=1).astype(np.int64)
+    dev = torch.device(device)
+    return SellTable(
+        groups=groups, entries=torch.from_numpy(entries).to(dev),
+        block_map=torch.from_numpy(bmap).to(dev),
+        grid_x=grid_x, wide=bool((leaves > SELL_REG_LEAVES).any()),
+        slots=int((rows * width).sum()),
+        lane_widths=(None if lane_widths is None else
+                     torch.from_numpy(np.ascontiguousarray(
+                         lane_widths, np.int32)).to(dev)),
+        slice_rows=int(slice_rows) if lane_widths is not None else 0)
+
+
+#: (device, groups) -> the shared table of an operand packed without lane
+#: widths (row-ELL), built once.
+_SHARED_TABLES: Dict[tuple, SellTable] = {}
+
+
+def _shared_table(groups, device: torch.device) -> SellTable:
+    key = (device, tuple(groups))
+    table = _SHARED_TABLES.get(key)
+    if table is None:
+        table = _SHARED_TABLES[key] = sell_table(groups, device=device)
+    return table
+
+
+def _lane_tree(prod: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
+    """``tree_sum`` over dim 1 of ``prod`` [G, w, rows], row (g, r) over
+    its own next_pow2(wl[g, r]) leaves, leaves j ≥ wl[g, r] read as +0:
+    the levels of the wider tree above a row's own width are skipped."""
+    G, w, rows = prod.shape
+    zero = torch.zeros((), dtype=prod.dtype, device=prod.device)
+    j = torch.arange(w, device=prod.device)[None, :, None]
+    p = torch.where(j < wl[:, None, :], prod, zero)
+    wp = 1 << max(w - 1, 0).bit_length()
+    if wp != w:
+        p = torch.cat([p, p.new_zeros((G, wp - w, rows))], dim=1)
+    own = torch.ones_like(wl)                           # next_pow2(wl)
+    for _ in range(wp.bit_length() - 1):
+        own = torch.where(own < wl, own * 2, own)
+    while wp > 1:
+        h = wp // 2
+        p = torch.where((own >= wp)[:, None, :], p[:, :h] + p[:, h:], p[:, :h])
+        wp = h
+    return p[:, 0]
+
+
 def spmv_sell_plain(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
-                    *, groups: Sequence[Tuple[int, int]],
-                    scheme) -> torch.Tensor:
+                    *, groups: Sequence[Tuple[int, int]], scheme,
+                    table: Optional[SellTable] = None) -> torch.Tensor:
     """Plain PyTorch SELL SpMV: per width group, gather ``x[g, cols]``,
     :func:`~repro_torch.core.batch.rounded_products`, and
-    :func:`~repro_torch.core.batch.tree_sum` over the width.  Returns
-    ``acc_dtype[G, n_pad]`` in sorted row order."""
+    :func:`~repro_torch.core.batch.tree_sum` over the width — with a
+    per-lane ``table``, over each row's lane width (slots past it are +0
+    leaves), as the kernel reads them.  Returns ``acc_dtype[G, n_pad]`` in
+    sorted row order."""
     from repro_torch.core.batch import rounded_products, tree_sum
     scheme = get_scheme(scheme)
     acc = scheme.spmv_acc_dtype
     x_in = x.to(scheme.spmv_in_dtype)
-    G = x.shape[0]
-    parts, off = [], 0
+    G, n_pad = x.shape
+    wl = None
+    if table is not None and not table.shared:
+        wl = table.lane_widths.to(x.device, torch.int64).repeat_interleave(
+            table.slice_rows, dim=1)[:, :n_pad]
+    parts, off, r0 = [], 0, 0
     for rows, w in groups:
         if w == 0:
             parts.append(torch.zeros((G, rows), dtype=acc, device=x.device))
+            r0 += rows
             continue
         c = cols[:, off:off + rows * w].long()
         v = vals[:, off:off + rows * w].reshape(G, w, rows)
         xg = torch.gather(x_in, 1, c).reshape(G, w, rows)
-        parts.append(tree_sum(rounded_products(v, xg, acc), dim=1))
+        prod = rounded_products(v, xg, acc)
+        parts.append(tree_sum(prod, dim=1) if wl is None
+                     else _lane_tree(prod, wl[:, r0:r0 + rows]))
         off += rows * w
+        r0 += rows
     return torch.cat(parts, dim=1)
 
 
 def spmv_sell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
-              groups: Sequence[Tuple[int, int]], scheme) -> torch.Tensor:
+              groups: Sequence[Tuple[int, int]], scheme,
+              table: Optional[SellTable] = None) -> torch.Tensor:
     """Batched SELL-C-σ SpMV (the port of ``spmv_pallas_sell``).
 
     ``cols``/``vals`` are the flat slot-major ``[G, L]`` arrays of
     :func:`repro_torch.sparse.stacking.stack_sell` (int16/int32 indices,
     values at ``scheme.matrix_dtype``), ``x`` is ``[G, n_pad]``, ``groups``
     the static ``(rows, width)`` runs (row-ELL: ``((n_pad, W),)`` over the
-    flattened ``[G, W, n_pad]`` arrays).  Returns ``acc_dtype[G, n_pad]``
-    in **sorted** row order; the caller applies ``iperm`` and the cast to
+    flattened ``[G, W, n_pad]`` arrays), ``table`` the operand's
+    :class:`SellTable` (None: the shared one, every lane at the stored
+    widths).  One launch.  Returns ``acc_dtype[G, n_pad]`` in **sorted**
+    row order; the caller applies ``iperm`` and the cast to
     ``vector_dtype``.
     """
     scheme = get_scheme(scheme)
     if on_cpu("spmv_sell", x):
-        return spmv_sell_plain(cols, vals, x, groups=groups, scheme=scheme)
+        return spmv_sell_plain(cols, vals, x, groups=groups, scheme=scheme,
+                               table=table)
     code = _scheme_code(scheme)
     G, n_pad = x.shape
     if cols.dim() != 2 or cols.shape != vals.shape or cols.shape[0] != G:
@@ -136,31 +334,29 @@ def spmv_sell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
             or sum(r * w for r, w in groups) != L):
         raise ValueError(f"spmv_sell: groups {groups} do not cover "
                          f"n_pad={n_pad}, L={L}")
+    if table is None:
+        table = _shared_table(groups, x.device)
+    map_rows = table.block_map.shape[0]
+    if (map_rows not in (1, G) or table.groups != tuple(map(tuple, groups))
+            or table.block_map.device != x.device):
+        raise ValueError(f"spmv_sell: a table of {map_rows} lanes over "
+                         f"groups {table.groups} on {table.block_map.device} "
+                         f"for x {(G, n_pad)} over groups {groups} on "
+                         f"{x.device}")
     x_in = x.to(scheme.spmv_in_dtype).contiguous()
-    check_cuda("spmv_sell", x.device, cols=cols, vals=vals)
+    check_cuda("spmv_sell", x.device, cols=cols, vals=vals,
+               entries=table.entries, block_map=table.block_map)
     y = torch.empty((G, n_pad), dtype=scheme.spmv_acc_dtype, device=x.device)
     fn = function("spmv_sell", "spmv_sell",
-                  [I, I, P, P, P, P, I, LL, I, I, P, P, P, P, P])
-    row0, off, table = 0, 0, []
-    for rows, w in groups:
-        table.append((row0, rows, w, off))
-        row0 += rows
-        off += rows * w
+                  [I, I, P, P, P, P, I, LL, I, P, P, I, I, I, P])
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for i in range(0, len(table), _GROUPS_PER_LAUNCH):
-            part = table[i:i + _GROUPS_PER_LAUNCH]
-            n = len(part)
-            r0 = (ctypes.c_int * n)(*(t[0] for t in part))
-            rs = (ctypes.c_int * n)(*(t[1] for t in part))
-            ws = (ctypes.c_int * n)(*(t[2] for t in part))
-            os_ = (ctypes.c_longlong * n)(*(t[3] for t in part))
-            err = fn(
-                code, _INDEX_BYTES[cols.dtype], cols.data_ptr(),
-                vals.data_ptr(), x_in.data_ptr(), y.data_ptr(), G, L,
-                n_pad, n, r0, rs, ws, os_, stream)
-            raise_on_error("spmv_sell", "spmv_sell", err)
-            LAUNCHES["spmv_sell"] += 1
+        err = fn(code, _INDEX_BYTES[cols.dtype], cols.data_ptr(),
+                 vals.data_ptr(), x_in.data_ptr(), y.data_ptr(), G, L, n_pad,
+                 table.entries.data_ptr(), table.block_map.data_ptr(),
+                 table.grid_x, map_rows, int(table.wide),
+                 torch.cuda.current_stream().cuda_stream)
+    raise_on_error("spmv_sell", "spmv_sell", err)
+    LAUNCHES["spmv_sell"] += 1
     return y
 
 

@@ -47,6 +47,7 @@ from repro_torch.core.metrics import (Metrics, STATUS_MAXITER,
 from repro_torch.core.precision import get_scheme
 from repro_torch.core.vm import BatchedVMState, make_vm_stepper
 from repro_torch.device import resolve_device
+from repro_torch.kernels.spmv import sell_table
 from repro_torch.sparse.csr import CSRMatrix
 from repro_torch.sparse.ellpack import csr_to_ellpack
 from repro_torch.sparse.stacking import (SELL_SLICE_ROWS, _sell_groups,
@@ -109,6 +110,7 @@ class _Pool:
         self.maxiter_vec = None
         self.layout = None if cfg.layout == "auto" else cfg.layout
         self.sell_widths = None                  # per-slice widths (sell)
+        self.lane_widths = None                  # host int32[slots, slices]
         self.groups = None                       # static (rows, w) runs
 
     # ------------------------------------------------------------ sizing
@@ -122,6 +124,21 @@ class _Pool:
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
+
+    def _sell_mat(self, arrays, lane_widths) -> tuple:
+        """``(cols, vals, iperm)`` plus the SELL kernel's table for these
+        lanes, built on the host from their widths (so the launch grid is
+        known without reading the device)."""
+        return tuple(arrays[:3]) + (sell_table(
+            self.groups, device=self.device, lane_widths=lane_widths,
+            slice_rows=max(1, min(SELL_SLICE_ROWS, self.bucket[0]))),)
+
+    def _lane_mat(self, s: int) -> tuple:
+        """The operand of slot ``s`` alone (the admission warm-up's)."""
+        if self.layout == "sell":
+            return self._sell_mat([arr[s:s + 1] for arr in self.mat[:3]],
+                                  self.lane_widths[s:s + 1])
+        return tuple(arr[s:s + 1] for arr in self.mat)
 
     def _alloc(self, dims):
         """(Re)allocate the slot-stacked tensors for bucket ``dims`` at the
@@ -155,6 +172,7 @@ class _Pool:
                 [c if c is not None else empty for c in self.csr_of_slot],
                 n_pad=n_pad, widths=self.sell_widths, scheme=self.scheme)
             self.groups = stacked.groups
+            self.lane_widths = stacked.lane_widths
             mat = (self._tensor(stacked.cols), self._tensor(stacked.vals),
                    self._tensor(stacked.iperm, torch.int64))
         elif not self._ellpack:
@@ -208,7 +226,8 @@ class _Pool:
             maxiter_vec[: self.maxiter_vec.shape[0]] = self.maxiter_vec
             self.metrics.bump("growths")
         self.bucket = dims
-        self.mat = mat
+        self.mat = (self._sell_mat(mat, self.lane_widths)
+                    if self.layout == "sell" else mat)
         self.state = state
         self.tol = tol
         self.maxiter_vec = maxiter_vec
@@ -263,9 +282,12 @@ class _Pool:
             else:
                 st1 = stack_sell([a], n_pad=n_pad, widths=self.sell_widths,
                                  scheme=self.scheme)
-                for arr, lane in zip(self.mat, (st1.cols[0], st1.vals[0],
-                                                st1.iperm[0])):
+                arrays = self.mat[:3]
+                for arr, lane in zip(arrays, (st1.cols[0], st1.vals[0],
+                                              st1.iperm[0])):
                     arr[s] = self._tensor(lane, arr.dtype)
+                self.lane_widths[s] = st1.lane_widths[0]
+                self.mat = self._sell_mat(arrays, self.lane_widths)
         else:
             if cfg.backend == "xla":
                 cols_l, vals_l = csr_rowell(a)
@@ -314,8 +336,7 @@ class _Pool:
         x0_l = self._tensor(xx[None], vd)
 
         # JPCG warm-up for this lane alone, through the pool's own SpMV.
-        lane_mat = tuple(arr[s:s + 1] for arr in self.mat)
-        r = b_l - self._matvec_of()(lane_mat)(x0_l)
+        r = b_l - self._matvec_of()(self._lane_mat(s))(x0_l)
         z = r / diag_l
         rz, rr = _row_dot(r, z)[0], _row_dot(r, r)[0]
 
@@ -437,7 +458,12 @@ class _Pool:
             occ[:target] +
             [s for s in range(S) if s not in occ][: target - live], np.int64)
         idx = torch.from_numpy(sel).to(self.device)
-        self.mat = tuple(arr[idx] for arr in self.mat)
+        if self.layout == "sell":
+            self.lane_widths = self.lane_widths[sel]
+            self.mat = self._sell_mat([arr[idx] for arr in self.mat[:3]],
+                                      self.lane_widths)
+        else:
+            self.mat = tuple(arr[idx] for arr in self.mat)
         st = self.state
         self.state = st._replace(
             it=st.it[idx], status=st.status[idx], mem=st.mem[:, idx],

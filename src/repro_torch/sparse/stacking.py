@@ -264,6 +264,9 @@ class StackedSell:
 
     ``iperm[g, i]`` is the sorted position of original row ``i``:
     ``y = take_along_axis(y_sorted, iperm, axis=1)`` undoes the sort.
+    ``lane_widths[g, s]`` is lane g's own need in slice s (its widest
+    sorted row there, unbucketed): the slots a kernel has to read,
+    where the stored width is the cross-lane bucket.
     Within-row slot order is untouched by the permutation and the
     per-row reduction uses the same halving tree as row-ELL, so SpMV
     results are **bit-identical** to row-ELL for every scheme.  Padded
@@ -278,6 +281,7 @@ class StackedSell:
     sort_window: int    # σ
     shapes: Tuple[Tuple[int, int], ...]
     nnzs: Tuple[int, ...]
+    lane_widths: np.ndarray  # int32[G, n_slices] per-lane exact widths
 
     @property
     def padded_rows(self) -> int:
@@ -371,12 +375,14 @@ def stack_sell(csrs: Sequence, *, bucket: bool = True, scheme=None,
         iperm[g] = inv.astype(np.int32)
 
     # Shared per-slice widths: cross-lane max, bucketed; 0 = all-empty.
+    # Each lane's own per-slice need is kept beside them.
     n_slices = -(-n_pad // C)
-    need = []
-    for s in range(n_slices):
-        r0, r1 = s * C, min((s + 1) * C, n_pad)
-        need.append(max(int(rns[g][perms[g][r0:r1]].max())
-                        for g in range(G)))
+    lane_widths = np.zeros((G, n_slices), np.int32)
+    for g in range(G):
+        srt = np.zeros(n_slices * C, np.int64)
+        srt[:n_pad] = rns[g][perms[g]]
+        lane_widths[g] = srt.reshape(n_slices, C).max(axis=1)
+    need = [int(w) for w in lane_widths.max(axis=0)]
     if widths is None:
         widths = [int(rnd(w)) if w > 0 else 0 for w in need]
     else:
@@ -417,4 +423,5 @@ def stack_sell(csrs: Sequence, *, bucket: bool = True, scheme=None,
     return StackedSell(cols, vals, iperm, groups, slice_rows=C,
                        sort_window=sigma,
                        shapes=tuple(a.shape for a in csrs),
-                       nnzs=tuple(a.nnz for a in csrs))
+                       nnzs=tuple(a.nnz for a in csrs),
+                       lane_widths=lane_widths)

@@ -20,8 +20,9 @@ import repro_torch.sparse as port_sparse
 from repro_torch.core.compile import canonical_program
 from repro_torch.core.precision import get_scheme
 from repro_torch.sparse.ellpack import csr_to_ellpack
-from repro_torch.sparse.stacking import (choose_layout, stack_ellpack,
-                                         stack_rowell, stack_sell)
+from repro_torch.sparse.stacking import (bucket_up, choose_layout,
+                                         stack_ellpack, stack_rowell,
+                                         stack_sell)
 
 SCHEMES = ["fp64", "mixed_v1", "mixed_v2", "mixed_v3"]
 
@@ -70,6 +71,44 @@ def test_stack_rowell_and_sell_match(scheme, bag):
     assert p.groups == r.groups
     assert (p.slice_rows, p.sort_window) == (r.slice_rows, r.sort_window)
     assert choose_layout(port) == ref_choose_layout(ref)
+
+
+def _slice_maxima(csrs, iperm, slice_rows):
+    """Per lane, per slice of the sorted rows: the widest row's nnz."""
+    G, n_pad = iperm.shape
+    n_slices = -(-n_pad // slice_rows)
+    out = np.zeros((G, n_slices), np.int64)
+    for g, a in enumerate(csrs):
+        srt = np.zeros(n_slices * slice_rows, np.int64)
+        srt[iperm[g, : a.shape[0]]] = a.row_nnz()
+        out[g] = srt.reshape(n_slices, slice_rows).max(axis=1)
+    return out
+
+
+@pytest.mark.parametrize("bag", ["skewed", "uniform", "int32"])
+def test_sell_lane_widths_are_slice_maxima(bag):
+    """The port's one addition to ``stack_sell``: each lane's own width
+    per slice, unbucketed, never above the stored (cross-lane) width;
+    everything the reference also returns stays byte-identical."""
+    port, ref = _bags(port_sparse)[bag], _bags(ref_sparse)[bag]
+    p = stack_sell(port, scheme=get_scheme("mixed_v3"))
+    r = ref_stack_sell(ref, scheme=ref_get_scheme("mixed_v3"))
+    for f in ("cols", "vals", "iperm"):
+        _equal(getattr(p, f), getattr(r, f))
+    assert p.groups == r.groups
+    assert p.lane_widths.dtype == np.int32
+    want = _slice_maxima(port, p.iperm, p.slice_rows)
+    assert np.array_equal(p.lane_widths, want)
+    stored = np.array([w for rows, w in p.groups
+                       for _ in range(-(-rows // p.slice_rows))])
+    assert (p.lane_widths <= stored[None]).all()
+    # the stored width is the cross-lane maximum, bucketed
+    assert [bucket_up(w) if w else 0 for w in p.lane_widths.max(axis=0)] \
+        == stored.tolist()
+    # the serving path (a lane packed into an existing bucket) too
+    one = stack_sell(port[:1], n_pad=p.padded_rows, widths=tuple(stored),
+                     scheme=get_scheme("mixed_v3"))
+    assert np.array_equal(one.lane_widths[0], p.lane_widths[0])
 
 
 @pytest.mark.parametrize("bag", ["skewed", "uniform"])

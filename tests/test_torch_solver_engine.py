@@ -17,7 +17,10 @@ from repro.serve.solver_engine import (SolverEngine as RefEngine,
                                        SolverEngineConfig as RefConfig)
 
 import repro_torch.sparse as port_sparse
+from repro_torch.core.batch import jpcg_solve_batched
+from repro_torch.kernels.spmv import sell_table
 from repro_torch.serve import SolverEngine, SolverEngineConfig
+from repro_torch.sparse.stacking import stack_sell
 
 CASES = [("xla", "auto"), ("xla", "sell"), ("pallas", "auto")]
 BK = dict(block_rows=128, col_tile=128)
@@ -178,3 +181,70 @@ def test_free_slots_and_pool_routing():
     done = eng.run_to_completion()
     assert {r.scheme for r in done.values()} == {"mixed_v3", "fp64"}
     assert eng.free_slots() == 8
+
+
+def _check_sell_table(pool):
+    """The pool's table is the one rebuilt from the slots' CSRs: the
+    occupied lanes' widths as ``stack_sell`` packs them in the pool's
+    geometry, and the host's grid (the most blocks a lane needs) read off
+    the table it launches."""
+    occupied = [s for s, r in enumerate(pool.req_of_slot) if r is not None]
+    lw = pool.lane_widths
+    assert lw.shape[0] == pool.slots
+    if occupied:
+        st = stack_sell([pool.csr_of_slot[s] for s in occupied],
+                        n_pad=pool.bucket[0], widths=pool.sell_widths,
+                        scheme=pool.scheme)
+        assert st.groups == pool.groups
+        assert np.array_equal(lw[occupied], st.lane_widths)
+    table = pool.mat[3]
+    want = sell_table(pool.groups, device="cpu", lane_widths=lw,
+                      slice_rows=table.slice_rows)
+    assert torch.equal(table.entries, want.entries)
+    assert torch.equal(table.block_map, want.block_map)
+    assert torch.equal(table.lane_widths, want.lane_widths)
+    bmap = table.block_map.numpy()
+    assert table.block_map.shape[0] == pool.slots
+    assert table.grid_x == want.grid_x == (bmap >= 0).sum(axis=1).max()
+
+
+def test_sell_pool_lane_table_through_admit_compact_readmit():
+    """Lanes of very different widths admitted into one SELL pool, the
+    pool compacted, lanes admitted again: after every step the kernel's
+    table matches the lanes, and the solves match the batched solver."""
+    mats = [port_sparse.tridiagonal_spd(60),
+            port_sparse.diag_dominant_spd(200, nnz_per_row=80,
+                                          dominance=1.2, seed=8),
+            port_sparse.powerlaw_spd(150, alpha=2.1, seed=3),
+            port_sparse.poisson_2d(9),
+            port_sparse.tridiagonal_spd(90)]
+    eng = SolverEngine(SolverEngineConfig(
+        batch_slots=8, chunk_iters=8, layout="sell", compact_fraction=0.5,
+        device="cpu", **BK))
+    rids = {}
+    for a in mats[:4]:
+        rids[eng.submit(a)] = a
+        _check_sell_table(eng._pool(None, None))
+    pool = eng._pool(None, None)
+    assert pool.layout == "sell"
+    m = eng.metrics()            # the first admit allocates; the rest grow
+    assert m["admits"] - 1 - m.get("growths", 0) >= 1, "none packed in place"
+    out = {}
+    while len(out) < 3:                 # the stencils finish first
+        out.update(eng.step())
+        _check_sell_table(pool)
+    assert eng.metrics()["compactions"] >= 1 and pool.slots < 8
+    for a in (mats[4], mats[0]):        # re-admission after compaction
+        rids[eng.submit(a)] = a
+        _check_sell_table(pool)
+    out.update(eng.run_to_completion())
+    _check_sell_table(pool)
+    assert set(out) == set(rids)
+    want = jpcg_solve_batched(list(rids.values()), layout="sell",
+                              device="cpu")
+    for (rid, a), w in zip(rids.items(), want):
+        got = out[rid]
+        assert got.status == w.status == "CONVERGED"
+        assert abs(got.iterations - w.iterations) <= 1
+        np.testing.assert_allclose(np.asarray(got.x), np.asarray(w.x),
+                                   rtol=1e-4, atol=1e-6)

@@ -11,9 +11,14 @@ JAX package.
 
 Every case runs over the 4 faithful schemes; row-ELL and SELL over int16
 and int32 column indices (ELLPACK always stores int32 local columns, over
-a skewed and a stencil bag).  The CUDA kernels themselves are held
-against these plain versions on the card by ``chip_smoke.py``.
+a skewed and a stencil bag).  The SELL kernel reads each lane at its own
+per-slice width (``SellTable``); its plain version given the same table
+is held bitwise to the one without and to the oracle, and the table is
+checked to cover every row of every lane once.  The CUDA kernels
+themselves are held against these plain versions on the card by
+``chip_smoke.py``.
 """
+import dataclasses
 from functools import partial
 
 import jax
@@ -184,3 +189,153 @@ def test_rounded_products_keep_zero_signs():
         jnp.asarray(v.numpy()), jnp.asarray(x.numpy()), jnp.float64))
     assert np.array_equal(np.signbit(got.numpy()), np.signbit(want))
     assert np.array_equal(got.numpy(), want, equal_nan=True)
+
+
+def _wide_bag(mod, index):
+    """Lanes whose widths differ by 20× or more: a 3-wide stencil beside
+    an ~80-wide random lane (int32: the stencil crosses 2^15 rows)."""
+    if index == "int16":
+        return [mod.tridiagonal_spd(100),
+                mod.diag_dominant_spd(120, nnz_per_row=80, dominance=1.2,
+                                      seed=5),
+                mod.poisson_2d(6)]
+    return [mod.tridiagonal_spd(17000),
+            mod.diag_dominant_spd(200, nnz_per_row=80, dominance=1.2,
+                                  seed=8)]
+
+
+_SELL_BAGS = {"skewed": _bag, "wide": _wide_bag}
+
+
+@pytest.mark.parametrize("bag", ["skewed", "wide"])
+@pytest.mark.parametrize("index", ["int16", "int32"])
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_sell_lane_table_plain_matches(scheme, index, bag):
+    """Each lane read at its own widths: the plain version with the
+    per-lane table equals the one without and the numpy oracle."""
+    port = _SELL_BAGS[bag](port_sparse, index)
+    ref = _SELL_BAGS[bag](ref_sparse, index)
+    sch = get_scheme(scheme)
+    st = stack_sell(port, scheme=sch)
+    assert st.cols.dtype == np.dtype(index)
+    widths = [w for _, w in st.groups if w]
+    lane_max = st.lane_widths.max(axis=1)
+    if bag == "wide":
+        assert lane_max.max() >= 20 * lane_max.min()
+    table = K.sell_table(st.groups, device="cpu",
+                         lane_widths=st.lane_widths,
+                         slice_rows=st.slice_rows)
+    assert table.streamed_slots(len(port)) < st.cols.size
+    assert max(widths) >= lane_max.max()
+    xs = _xs(port, 3)
+    x_t = torch.from_numpy(_padded(xs, st.padded_rows))
+    args = (torch.from_numpy(st.cols), torch.from_numpy(st.vals), x_t)
+    y_lane = K.spmv_sell_plain(*args, groups=st.groups, scheme=sch,
+                               table=table)
+    y_shared = K.spmv_sell_plain(*args, groups=st.groups, scheme=sch)
+    assert y_lane.dtype == y_shared.dtype == sch.spmv_acc_dtype
+    assert np.array_equal(y_lane.numpy(), y_shared.numpy())
+    assert torch.equal(K.spmv_sell(*args, groups=st.groups, scheme=sch,
+                                   table=table), y_lane)
+    y = batch.batched_matvec_sell(*args[:2], torch.from_numpy(st.iperm).long(),
+                                  x_t, groups=st.groups, scheme=sch,
+                                  table=table).numpy()
+    for g, (a, w) in enumerate(zip(port, _reference_spmv(ref, xs, scheme))):
+        assert np.array_equal(y[g, : a.shape[0]], w), f"lane {g}"
+
+
+def _check_table(table, groups, lane_widths, slice_rows):
+    """Walk the blocks as the kernel does: every sorted row of every lane
+    is written by exactly one block, reads its lane's width in its slice
+    (never past the stored width) at the group's slot offsets, with S
+    threads of next_pow2(w) / S leaves."""
+    ent = table.entries.numpy()
+    bmap = table.block_map.numpy()
+    G, n_slices = lane_widths.shape
+    n_pad = sum(r for r, _ in groups)
+    row_off = np.zeros(n_pad, np.int64)       # flat slot 0 of each row
+    row_stride = np.zeros(n_pad, np.int64)
+    stored = np.zeros(n_pad, np.int64)
+    r0 = off = 0
+    for rows, w in groups:
+        row_off[r0:r0 + rows] = off + np.arange(rows)
+        row_stride[r0:r0 + rows] = rows
+        stored[r0:r0 + rows] = w
+        r0 += rows
+        off += rows * w
+    assert bmap.shape == (G, table.grid_x)
+    assert table.grid_x == (bmap >= 0).sum(axis=1).max()
+    seen = np.zeros((G, n_pad), np.int64)
+    for g in range(G):
+        live = bmap[g][bmap[g] >= 0]
+        # a lane's blocks come first, then -1 to the end of the grid
+        assert (bmap[g, live.size:] == -1).all()
+        for b, e in enumerate(bmap[g, :live.size]):
+            row0, rows, width, S, block0, base, stride, leaves = ent[e]
+            pw = 1 << max(int(width) - 1, 0).bit_length()
+            assert S == min(max(pw // K.SELL_MIN_LEAVES, 1),
+                            K.SELL_MAX_SUBSETS)
+            assert leaves == (pw // S if width else 0)
+            rb = 256 // S
+            lr = (b - block0) * rb + np.arange(rb)
+            lr = lr[lr < rows]
+            assert lr.size, "a block with no rows"
+            r = row0 + lr
+            seen[g, r] += 1
+            want = lane_widths[g, r // slice_rows]
+            assert (width == want).all() and (width <= stored[r]).all()
+            assert (base + lr == row_off[r]).all()
+            assert (stride == row_stride[r]).all()
+    assert (seen == 1).all()
+    assert table.streamed_slots(G) == int(
+        (lane_widths.repeat(slice_rows, axis=1)[:, :n_pad]).sum())
+
+
+@pytest.mark.parametrize("bag", ["skewed", "wide"])
+@pytest.mark.parametrize("index", ["int16", "int32"])
+def test_sell_table_covers_every_row_once(bag, index):
+    port = _SELL_BAGS[bag](port_sparse, index)
+    st = stack_sell(port, scheme=get_scheme("mixed_v3"))
+    table = K.sell_table(st.groups, device="cpu",
+                         lane_widths=st.lane_widths,
+                         slice_rows=st.slice_rows)
+    assert not table.shared and table.wide == (
+        int(table.entries[:, 7].max()) > K.SELL_REG_LEAVES)
+    _check_table(table, st.groups, st.lane_widths, st.slice_rows)
+    # the shared table reads every lane at the stored widths; its one
+    # map row serves every lane
+    shared = K.sell_table(st.groups, device="cpu")
+    assert shared.shared and shared.block_map.shape[0] == 1
+    assert shared.streamed_slots(len(port)) == st.cols.size
+    stored = np.array([w for rows, w in st.groups
+                       for _ in range(-(-rows // st.slice_rows))])
+    per_lane = dataclasses.replace(
+        shared, block_map=shared.block_map.expand(len(port), -1))
+    _check_table(per_lane, st.groups,
+                 np.broadcast_to(stored, st.lane_widths.shape),
+                 st.slice_rows)
+
+
+def test_sell_table_wide_rows_take_the_generic_tree():
+    """Rows wider than 32 × SELL_REG_LEAVES slots mark the table wide
+    (the kernel's generic-tree instantiation); the plain version reads
+    them at their lane width as any other row."""
+    n, hubs, w = 2304, 64, 32 * K.SELL_REG_LEAVES + 1
+    rows = np.concatenate([np.repeat(np.arange(hubs), w), np.arange(n)])
+    cols = np.concatenate([(np.repeat(np.arange(hubs), w)
+                            + np.tile(np.arange(w), hubs)) % n, np.arange(n)])
+    vals = np.random.default_rng(0).standard_normal(rows.size)
+    a = port_sparse.csr_from_coo(rows, cols, vals, (n, n))
+    sch = get_scheme("fp64")
+    st = stack_sell([a], scheme=sch)
+    table = K.sell_table(st.groups, device="cpu", lane_widths=st.lane_widths,
+                         slice_rows=st.slice_rows)
+    assert table.wide
+    assert int(table.entries[:, 7].max()) == 2 * K.SELL_REG_LEAVES
+    assert not K.sell_table(((64, 2048),), device="cpu").wide
+    x = torch.from_numpy(_padded(_xs([a], 4), st.padded_rows))
+    args = (torch.from_numpy(st.cols), torch.from_numpy(st.vals), x)
+    assert np.array_equal(
+        K.spmv_sell_plain(*args, groups=st.groups, scheme=sch,
+                          table=table).numpy(),
+        K.spmv_sell_plain(*args, groups=st.groups, scheme=sch).numpy())
