@@ -6,20 +6,24 @@
 0. The build: every kernel's registers, stack frame and spills from the
    ptxas report; each ELLPACK instantiation with a register tree
    (``next_pow2(E) ≤ 32``) and each SELL register-tree instantiation
-   (``spmv_sell_kernel<…, false>``, all 8) must have a 0-byte stack frame
-   (SELL: and no spills), each bf16 ``flash_attention`` instantiation no
-   spills and ``HMMA`` in its SASS.
+   (``spmv_sell_kernel<…, false>``, all 14: 7 type triples, the TPU
+   tier's bf16 ones included, × int16/int32) must have a 0-byte stack
+   frame (SELL: and no spills), each bf16 ``flash_attention``
+   instantiation no spills and ``HMMA`` in its SASS.
 1. Kernels against their plain PyTorch versions on the card: the SELL
    kernel with each bag's per-lane table (the main bag, an int16 bag,
    lanes whose widths differ ~30×, and 2,049-slot hub rows for its
    generic tree) and in row-ELL form (one group, the shared table), bit
    for bit; the ELLPACK kernel (on Poisson lanes, and on banded bags
    whose slab width E takes every tree instantiation: 1, 2, 7, 12, 20,
-   and 40 for the generic tree), bitwise; every faithful scheme, int16
-   and int32 indices.  Times each kernel, its plain version and an fp64
+   and 40 for the generic tree), bitwise; every faithful scheme and
+   every TPU-tier scheme (``tpu_fp32``, bf16 ``tpu_v1..v3``), int16 and
+   int32 indices.  Times each kernel, its plain version and a
    block-diagonal CSR ``torch.sparse.mm`` of the same bag (a yardstick
-   only, never called by the port; the kernels run mixed_v3, SELL also
-   fp64), beside bounds at 3.35 TB/s: ``bound_ms`` for the bag's
+   only, never called by the port: fp64 for the kernels at mixed_v3, SELL
+   also at fp64; at the tier's value dtype for each tier entry, "none"
+   where PyTorch has no such call), beside bounds at 3.35 TB/s (the
+   tier's at its own bytes: 2 B bf16 values): ``bound_ms`` for the bag's
    nonzeros at their at-rest widths, ``bound_stored_ms`` for every stored
    slot of the padded layout and, for SELL, ``bound_streamed_ms`` for the
    slots below each lane's own width (what it reads), with the slots
@@ -29,28 +33,45 @@
    250,000, n_pad 262,144): VM ≡ phases bitwise under mixed_v3 (SELL) and
    fp64, and the ELLPACK and row-ELL layouts on the Poisson lanes; every
    lane CONVERGED with a true residual ‖Ax−b‖/‖b‖ ≤ 1e-6 on the host in
-   fp64.  The VM loop is also timed alone on pre-packed operands, and
-   profiled once (device time by kernel, busy share).
+   fp64.  On the mixed_v3 SELL bag the generic VM (``specialize=False``,
+   the program an operand) ≡ the specialized VM ≡ phases, bit for bit.
+   The tier: the bag at ``tpu_v3`` (SELL; row-ELL on the Poisson lanes),
+   VM ≡ phases bitwise, to ‖r‖ ≤ 1e-5 ‖b‖ (``TIER_RTOL``, a level fp32
+   vectors reach), every lane CONVERGED, its status and true residual
+   logged (bf16 values: the true residual is of A, not of the bf16 A the
+   tier solves); then every tier scheme through row-ELL and ELLPACK on
+   the Poisson lanes once.  Each VM loop is timed alone on pre-packed
+   operands; the mixed_v3 SELL loop (specialized and generic), the
+   ELLPACK loop and the ``tpu_v3`` SELL loop are profiled (device time
+   by kernel, busy share).
 3. ``SolverEngine``: ~10 requests of mixed sizes plus one singular lane;
    the singular lane exits BREAKDOWN_INDEFINITE at iteration 0, the rest
    converge, ``bytes_streamed_est`` equals the packed-array accounting.
+   Then one ``SolverEngine(specialize=False)`` serves ``poisson_2d(500)``
+   and a power-law lane under the paper and the min-traffic policies
+   through one cached generic stepper, the two policies bit for bit.
 4. The same small bag through the port on the card and on the CPU.
 5. The single-system kernels against their plain versions on the card,
    bitwise: ``spmv_ell`` (the ELLPACK kernel at G = 1) on
    ``poisson_2d(1000)`` and on the banded widths of phase 1 for every
-   faithful scheme; ``dot`` (one launch) at n ∈ {1, 2047, 2048, 2049,
+   faithful and tier scheme; ``dot`` (one launch) at n ∈ {1, 2047, 2048, 2049,
    10^6} and three calls in a row of different n; ``dot``, ``dot3``,
    ``phase2`` and ``phase3`` at fp32 and fp64 on vectors of n = 10^6 and
    of ragged lengths.  Each is timed at n = 10^6 (fp64; the SpMV at
-   mixed_v3) with a cold, clean L2 before every call, beside its plain
-   version, its bound at 3.35 TB/s and, where one PyTorch call computes
-   the same function, that call (``torch.dot``; an fp64 CSR
-   ``torch.sparse.mm`` for the SpMV).
+   mixed_v3, and each tier scheme) with a cold, clean L2 before every
+   call, beside its plain version, its bound at 3.35 TB/s and, where one
+   PyTorch call computes the same function, that call (``torch.dot``; a
+   CSR ``torch.sparse.mm`` for the SpMV, fp64 or at the tier's value
+   dtype).
 6. The single-system solve (``jpcg_solve``) at full size on
    ``poisson_2d(1000)`` (n = 1,000,000, 4,996,000 nonzeros; b = 1,
    x0 = 0, tol 1e-12, maxiter 20,000): ``vsr`` × ``pallas`` at mixed_v3
-   and fp64, ``vsr`` × ``xla`` and ``pipelined`` × ``xla`` at mixed_v3.
-   Every solve converges to a true residual ≤ 1e-6; at mixed_v3 the
+   and fp64, ``vsr`` × ``xla`` and ``pipelined`` × ``xla`` at mixed_v3,
+   and ``vsr`` × ``pallas`` at ``tpu_v3`` to ‖r‖ ≤ 1e-5 ‖b‖ (its launches
+   counted as the mixed_v3 run's, ``spmv_ell[tpu_v3]`` too; its true
+   residual logged).  Every faithful solve converges to a true residual
+   ≤ 1e-6; every solve repeated from a pre-built operator gives the same
+   iterations and x bit for bit; at mixed_v3 the
    ``pallas`` and ``xla`` VSR solves agree (iterations ±1, x within
    rtol 1e-4, atol 1e-6) and the pipelined x agrees with them.  Each is
    timed as a call from the CSR and as the loop alone on a pre-built
@@ -89,7 +110,11 @@
 
 Launch counters are set to 0 right before the solves of phases 2, 3 and
 6 and before phase 8, and read right after; each kernel of a path must
-have launched on it (``dot3`` has no solver path: phase 5 launches it).
+have launched on it (``dot3`` has no solver path: phase 5 launches it;
+nor have ``spmv_ell`` at ``tpu_fp32``/``tpu_v1``/``tpu_v2``).  A tier
+instantiation counts under its kernel's name and, apart, under
+``<kernel>[<scheme>]``; the ``kernels`` line lists each such entry.
+No path is cut in depth: every phase runs at the size above.
 Any failed check raises, and so does any kernel's time under 95 % of its
 bound.  The last line is the JSON result; the line before the card's is
 the LM path's numbers.
@@ -109,10 +134,18 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}   # H100 SXM, no tensor cores
+#: H100 SXM peaks: fp64 and fp32 off the tensor cores; bf16 the guide's one
+#: bf16 rate (tensor cores; the tier's SpMVs are bound by bytes either way)
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 SCHEMES = ("fp64", "mixed_v1", "mixed_v2", "mixed_v3")
+#: the TPU tier (one level down: bf16 values, fp32 vectors); tpu_fp32 runs
+#: mixed_v1's instantiation, tpu_v1..v3 the bf16 ones
+TIER = ("tpu_fp32", "tpu_v1", "tpu_v2", "tpu_v3")
 SOLVE_TOL = 1e-12
 RESIDUAL_MAX = 1e-6
+#: the tier's solves stop at ‖r‖ ≤ 1e-5 ‖b‖ (rr ≤ 1e-10 ‖b‖²), a level
+#: fp32 vectors reach; 1e-12 absolute is below fp32's resolution of rr
+TIER_RTOL = 1e-5
 #: a kernel faster than its bound allows means a wrong bound or timing
 SHARE_MAX = 1.05
 
@@ -217,9 +250,10 @@ def phase_build(libs: dict) -> None:
             if kern.startswith("flash_fwd_bf16<") and (
                     r.get("spill_stores") or r.get("spill_loads")):
                 faults.append(f"{kern} spills: {r}")
-    if sell != 16:
+    if sell != 28:
         faults.append(f"{sell} spmv_sell_kernel instantiations in the ptxas "
-                      "report, not 16 (4 schemes × 2 index widths × 2 trees)")
+                      "report, not 28 (7 type triples × 2 index widths × 2 "
+                      "trees)")
     hmma = sass_counts(libs["flash_attn"], "HMMA")
     if hmma is None:
         log("  flash_attn: no cuobjdump in the toolkit; HMMA not checked")
@@ -387,14 +421,33 @@ def _same(a, b) -> bool:
 def _bits(a, b) -> bool:
     """Bit for bit, the sign of a zero included."""
     import torch
-    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32,
+            torch.bfloat16: torch.int16}
     return a.shape == b.shape and a.dtype == b.dtype and bool(
         torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
 
 
+def library_ms(A64, x, dtype, timer=None):
+    """The library yardstick at a value dtype: ``torch.sparse.mm`` of the
+    CSR ``A64`` cast to ``dtype`` by ``x`` at ``dtype``; None where PyTorch
+    has no such call on the card (it raises)."""
+    import torch
+    timer = timer or cuda_ms
+    try:
+        A = A64.to(dtype)
+        xs = x.to(dtype)
+        torch.sparse.mm(A, xs)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"    no torch.sparse.mm at {dtype}: {str(e).splitlines()[0][:100]}")
+        return None
+    return timer(lambda: torch.sparse.mm(A, xs))
+
+
 def phase_kernels(bag, dev):
     """Every kernel against its plain version on the card, bitwise (SELL
-    and row-ELL bit for bit, zero signs included)."""
+    and row-ELL bit for bit, zero signs included), at the faithful schemes
+    and the TPU tier."""
     import torch
     from repro_torch.core.batch import stack_operands
     from repro_torch.core.precision import get_scheme
@@ -439,7 +492,8 @@ def phase_kernels(bag, dev):
             note = (f", slots streamed {table.streamed_slots(G)} of "
                     f"{mat[0].numel()} stored, grid {table.grid_x} × {G}"
                     f"{', generic tree' if table.wide else ''}")
-        for name in SCHEMES:
+        A64 = None              # the library's CSR, built once a case
+        for name in SCHEMES + TIER:
             sch = get_scheme(name)
             in_el = torch.empty((), dtype=sch.spmv_in_dtype).element_size()
             if layout == "ellpack":
@@ -483,8 +537,8 @@ def phase_kernels(bag, dev):
             log(f"  {label:18s} {name:8s} {idx}: {how} equal (G={G}, "
                 f"n_pad={n_pad}, stream {nbytes(*stream)} B, pack "
                 f"{pack_s:.2f} s{note})")
-            main = (label in ("sell/main", "ellpack/poisson")
-                    and name in ("mixed_v3", "fp64"))
+            main = label in ("sell/main", "ellpack/poisson") and (
+                name in ("mixed_v3", "fp64") or name in TIER)
             if not main or (name == "fp64" and layout != "sell"):
                 continue
             # bound_ms counts what this bag needs: its nonzeros' values and
@@ -509,35 +563,44 @@ def phase_kernels(bag, dev):
                     f"for {nnz} nonzeros ({need} B, {b_ms / ms:.1%})")
                 continue
             plain_ms = cuda_ms(lambda: plain(*args, **kw))
-            A = block_diag_csr(csrs, n_pad if layout != "ellpack"
-                               else n_ct * stacked.col_tile,
-                               dev, torch.float64)
+            if A64 is None:
+                A64 = block_diag_csr(csrs, n_pad if layout != "ellpack"
+                                     else n_ct * stacked.col_tile,
+                                     dev, torch.float64)
             xs = (x if layout != "ellpack" else xt).reshape(-1, 1)
-            lib_ms = cuda_ms(lambda: torch.sparse.mm(A, xs))
-            timed[kname] = dict(
+            # the faithful rows keep their fp64 yardstick; a tier row's is
+            # at its own value dtype
+            lib_dt = torch.float64 if name in SCHEMES else sch.matrix_dtype
+            lib_ms = library_ms(A64, xs, lib_dt)
+            entry = kname if name in SCHEMES else f"{kname}[{name}]"
+            timed[entry] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib_ms, library_dtype="float64",
+                bound_by=b_by, library_ms=lib_ms,
+                library_dtype=str(lib_dt).split(".")[-1],
                 bound_stored_ms=st_ms, shape=label, nnz=nnz, slots=slots)
-            log(f"    {kname}: {ms:.3f} ms (plain {plain_ms:.3f}, fp64 "
-                f"torch.sparse.mm {lib_ms:.3f}); bound {b_ms:.4f} ms by "
-                f"{b_by} for {nnz} nonzeros ({need} B, {b_ms / ms:.1%}); "
-                f"stored-slot bound {st_ms:.4f} ms for {slots} slots "
-                f"({moved} B, {moved / ms / 1e6:.1f} GB/s, "
+            lib = "none" if lib_ms is None else f"{lib_ms:.3f}"
+            log(f"    {entry}: {ms:.3f} ms (plain {plain_ms:.3f}, "
+                f"{timed[entry]['library_dtype']} torch.sparse.mm {lib}); "
+                f"bound {b_ms:.4f} ms by {b_by} for {nnz} nonzeros ({need} "
+                f"B, {b_ms / ms:.1%}); stored-slot bound {st_ms:.4f} ms for "
+                f"{slots} slots ({moved} B, {moved / ms / 1e6:.1f} GB/s, "
                 f"{st_ms / ms:.1%})")
-            del A
             if table is not None:
-                timed[kname].update(fp64_t)
-                timed[kname].update(_sell_streamed(
+                if name == "mixed_v3":
+                    timed[entry].update(fp64_t)
+                timed[entry].update(_sell_streamed(
                     kern, args, kw, table, stacked, slot_b, in_b,
-                    nbytes(y_k), sch, ms))
+                    nbytes(y_k), sch, ms, classes=name == "mixed_v3"))
+        del A64
     return timed
 
 
 def _sell_streamed(kern, args, kw, table, stacked, slot_b, in_b, y_b, sch,
-                   ms) -> dict:
+                   ms, classes=True) -> dict:
     """The SELL kernel against what it reads: the bound of the slots below
-    each lane's own width (x and y as allocated), and the same kernel on
-    each class of the bag's lanes alone (a table of its own)."""
+    each lane's own width (x and y as allocated) and, with ``classes``,
+    the same kernel on each class of the bag's lanes alone (a table of its
+    own)."""
     from repro_torch.kernels import spmv as K
     cols, v, x = args
     G = x.shape[0]
@@ -548,6 +611,8 @@ def _sell_streamed(kern, args, kw, table, stacked, slot_b, in_b, y_b, sch,
     log(f"    streamed-slot bound {s_ms:.4f} ms for {streamed} slots "
         f"({moved} B, {moved / ms / 1e6:.1f} GB/s, {s_ms / ms:.1%}); "
         f"{blocks} of {table.grid_x * G} blocks live")
+    if not classes:
+        return dict(bound_streamed_ms=s_ms, streamed_slots=streamed)
     split = {}
     for name, g0, g1 in BAG_CLASSES:
         tc = K.sell_table(kw["groups"], device=x.device,
@@ -565,19 +630,30 @@ def _sell_streamed(kern, args, kw, table, stacked, slot_b, in_b, y_b, sch,
 
 
 # -------------------------------------------------------------- phase 2
+def solve_tol(scheme, csrs):
+    """The solve's stopping rule: the paper's rr < 1e-12 at the faithful
+    schemes; at the tier rr ≤ TIER_RTOL² ‖b‖², b = 1 (per lane)."""
+    if scheme in TIER:
+        return [TIER_RTOL ** 2 * a.shape[0] for a in csrs]
+    return SOLVE_TOL
+
+
 def _solve(bag, dev, **kw):
     import torch
     from repro_torch.core.batch import jpcg_solve_batched
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = jpcg_solve_batched(bag, tol=SOLVE_TOL, device=dev, **kw)
+    res = jpcg_solve_batched(bag, tol=solve_tol(kw.get("scheme"), bag),
+                             device=dev, **kw)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
 
 def _loop_run(csrs, dev, scheme, backend, layout):
-    """The VM solve loop alone on pre-packed operands: the runner that
-    ``jpcg_solve_batched(engine="vm")`` builds, and its inputs."""
+    """The VM solve loop alone on pre-packed operands: the runners that
+    ``jpcg_solve_batched(engine="vm")`` builds — specialized, and generic
+    (``specialize=False``, the paper program its operand) — and their
+    inputs."""
     import numpy as np
     import torch
     from repro_torch.core.batch import _pad_stack, stack_operands
@@ -588,17 +664,20 @@ def _loop_run(csrs, dev, scheme, backend, layout):
     mat, stacked, groups, n_ct, _ = stack_operands(
         csrs, backend=backend, layout=layout, scheme=sch, device=dev)
     n_pad, vd = stacked.padded_rows, sch.vector_dtype
-    run = make_vm_runner(backend=backend, scheme=sch, maxiter=20_000,
-                         with_trace=False, layout=layout, groups=groups,
-                         col_tile=512, n_col_tiles=n_ct,
-                         program=canonical_program("paper"))
+    prog = canonical_program("paper")
+    kw = dict(backend=backend, scheme=sch, maxiter=20_000, with_trace=False,
+              layout=layout, groups=groups, col_tile=512, n_col_tiles=n_ct)
+    run = make_vm_runner(program=prog, **kw)
+    generic = make_vm_runner(**kw)
+    tol = np.broadcast_to(np.asarray(solve_tol(scheme, csrs), np.float64),
+                          (len(csrs),))
     args = (mat, _pad_stack([a.diagonal() for a in csrs], n_pad, 1.0, vd,
                             dev),
             _pad_stack([np.ones(a.shape[0]) for a in csrs], n_pad, 0.0, vd,
                        dev),
             torch.zeros((len(csrs), n_pad), dtype=vd, device=dev),
-            torch.full((len(csrs),), SOLVE_TOL, dtype=vd, device=dev))
-    return run, args
+            torch.tensor(tol, dtype=vd, device=dev))
+    return run, (lambda *a: generic(prog, *a)), args
 
 
 def _timed(run, args):
@@ -630,7 +709,7 @@ def device_profile(fn):
     return out, wall, ev
 
 
-def profile_loop(run, args, loop_s: float) -> dict:
+def profile_loop(run, args, loop_s: float, label: str = "") -> dict:
     """Device time by kernel over one whole VM solve (torch.profiler).
 
     The busy share is against ``loop_s``, the same solve timed without
@@ -640,46 +719,83 @@ def profile_loop(run, args, loop_s: float) -> dict:
     ticks = int(st.k)
     busy_ms = sum(t for _, t, _ in ev)
     n_kernels = sum(c for _, _, c in ev)
-    log(f"    profile: {ticks} ticks, {n_kernels} kernels "
+    log(f"    profile{label}: {ticks} ticks, {n_kernels} kernels "
         f"({n_kernels / ticks:.1f}/tick), device busy {busy_ms:.1f} ms = "
         f"{busy_ms / ticks:.3f} ms/tick = {busy_ms / 1e3 / loop_s:.1%} of "
-        f"the unprofiled loop ({loop_s:.3f} s; {wall:.3f} s profiled)")
+        f"the unprofiled loop ({loop_s:.3f} s = {loop_s / ticks * 1e3:.3f} "
+        f"ms/tick; {wall:.3f} s profiled)")
     for key, t, c in sorted(ev, key=lambda e: -e[1])[:8]:
         log(f"      {t:9.1f} ms {c:7d}x  {key[:90]}")
-    return dict(busy_ms=busy_ms, ticks=ticks, kernels=n_kernels)
+    return dict(busy_ms=busy_ms, ticks=ticks, kernels=n_kernels,
+                ms_per_tick=loop_s / ticks * 1e3,
+                busy_share=busy_ms / 1e3 / loop_s)
 
 
 def phase_solve(bag, dev):
-    """VM ≡ phases on the card, every lane converged to a true residual;
-    the loop timed alone on pre-packed operands, and profiled once."""
+    """VM ≡ phases on the card, every lane converged (the faithful schemes
+    to a true residual ≤ RESIDUAL_MAX; the tier's true residuals logged);
+    the generic VM ≡ the specialized one on the mixed_v3 SELL bag; the
+    loop timed alone on pre-packed operands, and profiled."""
+    import numpy as np
     import torch
     from repro_torch.sparse.stacking import choose_layout
 
     rows = []
-    runs = [("mixed_v3", "xla", bag), ("fp64", "xla", bag),
-            ("mixed_v3", "pallas", bag[:4]), ("mixed_v3", "xla", bag[:4])]
-    for n_run, (scheme, backend, csrs) in enumerate(runs):
+    # (scheme, backend, lanes, full): a full run holds VM ≡ phases and
+    # times the loop alone; the tier sweep runs every tier instantiation
+    # of row-ELL and ELLPACK through the VM once on the Poisson lanes
+    runs = [("mixed_v3", "xla", bag, True), ("fp64", "xla", bag, True),
+            ("mixed_v3", "pallas", bag[:4], True),
+            ("mixed_v3", "xla", bag[:4], True),
+            ("tpu_v3", "xla", bag, True), ("tpu_v3", "xla", bag[:4], True)]
+    runs += [(s, backend, bag[:4], False) for s in TIER
+             for backend in ("xla", "pallas")
+             if (s, backend) != ("tpu_v3", "xla")]
+    profiles = {}
+    for n_run, (scheme, backend, csrs, full) in enumerate(runs):
         layout = choose_layout(
             csrs, default="rowell" if backend == "xla" else "ellpack")
         out = {}
-        for engine in ("vm", "phases"):
+        engines = {"vm": {}}
+        if full:
+            engines["phases"] = {"engine": "phases"}
+        if n_run == 0:                  # the generic VM on the main bag
+            engines["generic"] = {"specialize": False}
+        for engine, ekw in engines.items():
             out[engine] = _solve(csrs, dev, scheme=scheme, backend=backend,
-                                 engine=engine)
-        (vm, t_vm), (ph, t_ph) = out["vm"], out["phases"]
-        for g, (a, r_v, r_p) in enumerate(zip(csrs, vm, ph)):
-            if not (r_v.iterations == r_p.iterations
-                    and r_v.status == r_p.status
-                    and _same(r_v.x, r_p.x)):
-                raise AssertionError(
-                    f"{scheme}/{layout} lane {g}: VM differs from phases "
-                    f"({r_v.iterations} vs {r_p.iterations})")
+                                 **ekw)
+        vm, t_vm = out["vm"]
+        for other in [e for e in engines if e != "vm"]:
+            same = _bits if other == "generic" else _same
+            for g, (r_v, r_o) in enumerate(zip(vm, out[other][0])):
+                if not (r_v.iterations == r_o.iterations
+                        and r_v.status == r_o.status
+                        and same(r_v.x, r_o.x)):
+                    raise AssertionError(
+                        f"{scheme}/{layout} lane {g}: VM differs from "
+                        f"{other} ({r_v.iterations} vs {r_o.iterations})")
+        for g, (a, r_v) in enumerate(zip(csrs, vm)):
             res = residual(a, r_v.x)
-            if r_v.status != "CONVERGED" or res > RESIDUAL_MAX:
+            if scheme in TIER:
+                log(f"    {scheme}/{layout} lane {g}: {r_v.status} after "
+                    f"{r_v.iterations}, ‖r‖²/‖b‖² {r_v.rr / a.shape[0]:.3e}, "
+                    f"true residual {res:.3e}")
+                if r_v.status != "CONVERGED" or not np.isfinite(res):
+                    raise AssertionError(
+                        f"{scheme}/{layout} lane {g}: {r_v.status}, true "
+                        f"residual {res:.3e}")
+            elif r_v.status != "CONVERGED" or res > RESIDUAL_MAX:
                 raise AssertionError(
                     f"{scheme}/{layout} lane {g}: {r_v.status}, true "
                     f"residual {res:.3e}")
+        if not full:
+            log(f"  {scheme}/{layout} G={len(csrs)}: iterations "
+                f"{[r.iterations for r in vm]}, jpcg_solve_batched "
+                f"{t_vm:.3f} s")
+            continue
+        t_ph = out["phases"][1]
         t0 = time.perf_counter()
-        run, args = _loop_run(csrs, dev, scheme, backend, layout)
+        run, run_g, args = _loop_run(csrs, dev, scheme, backend, layout)
         torch.cuda.synchronize()
         pack_s = time.perf_counter() - t0
         st, loop_s = _timed(run, args)
@@ -697,6 +813,7 @@ def phase_solve(bag, dev):
                    max_residual=max(residual(a, r.x)
                                     for a, r in zip(csrs, vm)))
         rows.append(row)
+        held = " ≡ ".join(["VM"] + [e for e in engines if e != "vm"])
         log(f"  {scheme}/{layout} G={len(csrs)}: iterations {its}; "
             f"jpcg_solve_batched vm {t_vm:.3f} s, phases {t_ph:.3f} s "
             f"({row['systems_per_s']:.3f} systems/s, "
@@ -704,10 +821,30 @@ def phase_solve(bag, dev):
             f"{pack_s:.3f} s; loop alone {loop_s:.3f} s over {ticks} ticks "
             f"= {row['ms_per_tick']:.3f} ms/tick "
             f"({row['loop_systems_per_s']:.2f} systems/s); max residual "
-            f"{row['max_residual']:.2e}; VM ≡ phases bitwise")
-        if n_run in (0, 2):
-            profile_loop(run, args, loop_s)
-    return rows
+            f"{row['max_residual']:.2e}; {held} bit for bit")
+        if n_run in (0, 2, 4):
+            profiles[(scheme, layout)] = profile_loop(
+                run, args, loop_s, label=" (specialized)" if n_run == 0
+                else "")
+        if n_run == 0:
+            # the generic tick beside the specialized one: a record, not a
+            # gate (it commits the whole mem and queue files every tick)
+            t_g = out["generic"][1]
+            st_g, loop_g = _timed(run_g, args)
+            if st_g.it.cpu().tolist() != its or not _bits(st_g.mem,
+                                                          st.mem):
+                raise AssertionError("generic loop-only run differs from "
+                                     "the specialized one")
+            log(f"  generic VM {scheme}/{layout}: jpcg_solve_batched "
+                f"(specialize=False) {t_g:.3f} s; loop alone {loop_g:.3f} "
+                f"s = {loop_g / ticks * 1e3:.3f} ms/tick (specialized "
+                f"{row['ms_per_tick']:.3f}); state ≡ the specialized "
+                f"loop's bit for bit")
+            profiles[("generic", layout)] = profile_loop(
+                run_g, args, loop_g, label=" (generic)")
+            row["generic_s"] = t_g
+            del st_g
+    return rows, profiles
 
 
 # -------------------------------------------------------------- phase 3
@@ -784,6 +921,51 @@ def phase_engine(bag, dev):
         f"growths {m.get('growths', 0)}, exits {m['exit_status']}")
     return dict(requests=len(reqs), admit_s=admit_s, run_s=run_s,
                 iterations=its, bytes_streamed_est=m["bytes_streamed_est"])
+
+
+def phase_engine_generic(bag, dev):
+    """One ``SolverEngine(specialize=False)`` serves the same two lanes
+    (``poisson_2d(500)``, a power-law lane; SELL, mixed_v3) under the
+    paper and the min-traffic policy through one cached generic stepper;
+    the two policies' results are equal bit for bit."""
+    from repro_torch.core.vm import vm_executable_stats
+    from repro_torch.serve import SolverEngine, SolverEngineConfig
+    eng = SolverEngine(SolverEngineConfig(
+        batch_slots=2, chunk_iters=64, backend="xla", layout="sell",
+        specialize=False, device=str(dev)))
+    lanes = (bag[0], bag[6])
+    before = vm_executable_stats()
+    t0 = time.perf_counter()
+    rids = {(policy, k): eng.submit(a, policy=policy)
+            for policy in ("paper", "min_traffic")
+            for k, a in enumerate(lanes)}
+    admit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    done = eng.run_to_completion()
+    run_s = time.perf_counter() - t0
+    after = vm_executable_stats()
+    new = {k: after[k] - before[k] for k in after}
+    if new != {"executables": 1, "specialized": 0, "generic": 1}:
+        raise AssertionError(f"generic engine: new steppers {new}, "
+                             "expected one generic stepper for both pools")
+    its = []
+    for k, a in enumerate(lanes):
+        p, m = done[rids[("paper", k)]], done[rids[("min_traffic", k)]]
+        res = residual(a, p.x)
+        if not (p.iterations == m.iterations and p.status == m.status
+                and _bits(p.x, m.x)):
+            raise AssertionError(f"generic engine lane {k}: paper "
+                                 f"{p.iterations} vs min_traffic "
+                                 f"{m.iterations} iterations")
+        if p.status != "CONVERGED" or res > RESIDUAL_MAX:
+            raise AssertionError(f"generic engine lane {k}: {p.status}, "
+                                 f"true residual {res:.3e}")
+        its.append(p.iterations)
+    log(f"  generic engine: 2 pools (paper, min_traffic) × {len(lanes)} "
+        f"lanes through one cached generic stepper ({new}); admit "
+        f"{admit_s:.2f} s, run {run_s:.2f} s, iterations {its}; the two "
+        f"policies' results equal bit for bit")
+    return dict(admit_s=admit_s, run_s=run_s, iterations=its)
 
 
 # -------------------------------------------------------------- phase 4
@@ -879,15 +1061,18 @@ def phase_single_kernels(a, dev):
     lc = torch.from_numpy(m.local_cols).to(dev)
     xt = torch.randn(m.padded_cols, generator=gen, dtype=torch.float64
                      ).reshape(-1, m.col_tile).to(dev)
-    for name in SCHEMES:
+    A64 = block_diag_csr([a], n, dev, torch.float64)
+    xs = xt.reshape(-1)[:n].reshape(-1, 1).contiguous()
+    for name in SCHEMES + TIER:
         sch = get_scheme(name)
         v = torch.from_numpy(m.vals).to(dev, sch.matrix_dtype)
         args = (tc, v, lc, xt)
         y_k = K.spmv_ell(*args, scheme=sch)
+        entry = "spmv_ell" if name in SCHEMES else f"spmv_ell[{name}]"
         _held(f"spmv_ell/{name}", y_k, K.spmv_ell_plain(*args, scheme=sch),
-              errs, "spmv_ell")
+              errs, entry)
         log(f"  spmv_ell {name:8s}: bitwise equal")
-        if name != "mixed_v3":
+        if name != "mixed_v3" and name not in TIER:
             continue
         in_el = torch.empty((), dtype=sch.spmv_in_dtype).element_size()
         acc_el = y_k.element_size()
@@ -896,15 +1081,15 @@ def phase_single_kernels(a, dev):
         b_ms, b_by = bound_ms(need, 2 * a.nnz, sch.spmv_acc_dtype)
         moved = nbytes(tc, v, lc) + xt.numel() * in_el + nbytes(y_k)
         st_ms, _ = bound_ms(moved, 2 * v.numel(), sch.spmv_acc_dtype)
-        A = block_diag_csr([a], n, dev, torch.float64)
-        xs = xt.reshape(-1)[:n].reshape(-1, 1).contiguous()
-        timed["spmv_ell"] = dict(
+        lib_dt = torch.float64 if name in SCHEMES else sch.matrix_dtype
+        timed[entry] = dict(
             ms=cold_ms(lambda: K.spmv_ell(*args, scheme=sch)),
             plain_ms=cold_ms(lambda: K.spmv_ell_plain(*args, scheme=sch)),
-            library_ms=cold_ms(lambda: torch.sparse.mm(A, xs)),
+            library_ms=library_ms(A64, xs, lib_dt, timer=cold_ms),
             bound_ms=b_ms, bound_by=b_by, bound_stored_ms=st_ms,
-            library_dtype="float64", bytes=need, stored_bytes=moved)
-        del A
+            library_dtype=str(lib_dt).split(".")[-1], bytes=need,
+            stored_bytes=moved)
+    del A64
     for w in ELL_WIDTHS:
         mw = csr_to_ellpack(banded(5000, w, 100 + w))
         if mw.ell != w:
@@ -913,13 +1098,15 @@ def phase_single_kernels(a, dev):
                  for t in (mw.tile_cols, mw.local_cols)]
         xw = torch.randn(mw.padded_cols, generator=gen, dtype=torch.float64
                          ).reshape(-1, mw.col_tile).to(dev)
-        for name in SCHEMES:
+        for name in SCHEMES + TIER:
             sch = get_scheme(name)
             v = torch.from_numpy(mw.vals).to(dev, sch.matrix_dtype)
             args = (targs[0], v, targs[1], xw)
+            entry = "spmv_ell" if name in SCHEMES else f"spmv_ell[{name}]"
             _held(f"spmv_ell/E{w}/{name}", K.spmv_ell(*args, scheme=sch),
-                  K.spmv_ell_plain(*args, scheme=sch), errs, "spmv_ell")
-        log(f"  spmv_ell E={w}: bitwise equal for {len(SCHEMES)} schemes")
+                  K.spmv_ell_plain(*args, scheme=sch), errs, entry)
+        log(f"  spmv_ell E={w}: bitwise equal for {len(SCHEMES + TIER)} "
+            "schemes")
 
     # dot is one launch whose last block finishes the sum: every chunk
     # count around a whole chunk, then three calls in a row of different
@@ -994,7 +1181,8 @@ def phase_single_kernels(a, dev):
 
 # -------------------------------------------------------------- phase 6
 SINGLE_RUNS = (("vsr", "pallas", "mixed_v3"), ("vsr", "pallas", "fp64"),
-               ("vsr", "xla", "mixed_v3"), ("pipelined", "xla", "mixed_v3"))
+               ("vsr", "xla", "mixed_v3"), ("pipelined", "xla", "mixed_v3"),
+               ("vsr", "pallas", "tpu_v3"))
 
 
 def _single(fn):
@@ -1018,14 +1206,17 @@ def phase_single_solve(a, dev) -> dict:
     launches = {}
     out = {}
     for method, backend, scheme in SINGLE_RUNS:
+        tol = solve_tol(scheme, [a])
         kw = dict(method=method, backend=backend, scheme=scheme,
-                  tol=SOLVE_TOL, maxiter=20_000, device=dev)
+                  tol=tol if scheme not in TIER else tol[0], maxiter=20_000,
+                  device=dev)
         ops.reset_launches()
         res, call_s = _single(lambda: jpcg_solve(a, **kw))
         counts = ops.launches()
         its = res.iterations
         res_true = residual(a, res.x)
-        if not res.converged or res_true > RESIDUAL_MAX:
+        if not res.converged or not (res_true <= RESIDUAL_MAX or (
+                scheme in TIER and np.isfinite(res_true))):
             raise AssertionError(f"{method}/{backend}/{scheme}: converged "
                                  f"{res.converged} after {its}, true "
                                  f"residual {res_true:.3e}")
@@ -1034,6 +1225,8 @@ def phase_single_solve(a, dev) -> dict:
             # and phase 3 per iteration: no plain version on this path
             want = dict.fromkeys(counts, 0)
             want.update(spmv_ell=its + 1, dot=its, phase2=its, phase3=its)
+            if scheme in TIER:
+                want[f"spmv_ell[{scheme}]"] = its + 1
         else:
             want = dict.fromkeys(counts, 0)
         if counts != want:
@@ -1053,12 +1246,13 @@ def phase_single_solve(a, dev) -> dict:
                                  f"took {loop.iterations}, the call {its}; "
                                  f"x equal {torch.equal(loop.x, res.x)}")
         out[(method, backend, scheme)] = res
-        log(f"  {method}/{backend}/{scheme}: {its} iterations, call "
-            f"{call_s:.3f} s ({call_s / its * 1e3:.3f} ms/iteration); "
-            f"operator build {pack_s:.3f} s; loop alone {loop_s:.3f} s = "
-            f"{loop_s / its * 1e3:.4f} ms/iteration; true residual "
-            f"{res_true:.2e}")
-        if (method, backend, scheme) == SINGLE_RUNS[0]:
+        log(f"  {method}/{backend}/{scheme}: {its} iterations (rr "
+            f"{res.rr:.3e}, tol {kw['tol']:.3e}), call {call_s:.3f} s "
+            f"({call_s / its * 1e3:.3f} ms/iteration); operator build "
+            f"{pack_s:.3f} s; loop alone {loop_s:.3f} s = "
+            f"{loop_s / its * 1e3:.4f} ms/iteration, the same iterations "
+            f"and x bit for bit; true residual {res_true:.2e}")
+        if (method, backend, scheme) in (SINGLE_RUNS[0], SINGLE_RUNS[-1]):
             _, wall, ev = device_profile(lambda: jpcg_solve(op, **kw))
             busy_ms = sum(t for _, t, _ in ev)
             n_k = sum(c for _, _, c in ev)
@@ -1554,22 +1748,28 @@ def main() -> int:
     log(f"[data] bag G={len(bag)} n={[a.shape[0] for a in bag]}"
         f" nnz={[a.nnz for a in bag]} in {time.perf_counter() - t0:.1f} s")
 
-    # the kernels each path must launch
-    paths = {"solve": ("spmv_sell", "spmv_ellpack"),
+    # the kernels each path must launch (the tier's instantiations of
+    # spmv_sell and spmv_ellpack on the batched path, tpu_v3's spmv_ell on
+    # the single-system one)
+    tier = lambda k: tuple(f"{k}[{s}]" for s in TIER)   # noqa: E731
+    paths = {"solve": ("spmv_sell", "spmv_ellpack") + tier("spmv_sell")
+             + tier("spmv_ellpack"),
              "engine": ("spmv_sell", "spmv_ellpack"),
-             "single": ("spmv_ell", "dot", "phase2", "phase3"),
+             "single": ("spmv_ell", "dot", "phase2", "phase3",
+                        "spmv_ell[tpu_v3]"),
              "lm": ("flash_attention",)}
     launches = {}
     log("[phase 1] kernels against their plain versions")
     timed = phase_kernels(bag, dev)
-    log("[phase 2] batched solve")
+    log("[phase 2] batched solve (faithful schemes, generic VM, the tier)")
     ops.reset_launches()
     phase_solve(bag, dev)
     launches["solve"] = ops.launches()
     log(f"  launches {launches['solve']}")
-    log("[phase 3] SolverEngine")
+    log("[phase 3] SolverEngine, and one generic engine under two policies")
     ops.reset_launches()
     phase_engine(bag, dev)
+    phase_engine_generic(bag, dev)
     launches["engine"] = ops.launches()
     log(f"  launches {launches['engine']}")
     log("[phase 4] card against CPU")
@@ -1613,6 +1813,10 @@ def main() -> int:
                 "phase2": "src/repro/kernels/fused_phase.py:62",
                 "phase3": "src/repro/kernels/fused_phase.py:106",
                 "flash_attention": "src/repro/kernels/flash_attn.py:90"}
+    # each tier instantiation of the three SpMVs is an entry of its own
+    for k in ("spmv_sell", "spmv_ellpack", "spmv_ell"):
+        for name in tier(k):
+            sources[name], replaces[name] = sources[k], replaces[k]
     kernels = []
     for name, src in sources.items():
         t = timed[name]

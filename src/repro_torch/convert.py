@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.operators import BellOperator
 from repro_torch.core.phases import CGState
-from repro_torch.core.precision import get_scheme
+from repro_torch.core.precision import BF16_CARRIER, get_scheme
 from repro_torch.core.vm import BatchedVMState
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.ops import EllKernelOperator
@@ -40,6 +40,23 @@ __all__ = ["stacked_to_torch", "vm_state_to_torch", "vm_state_to_numpy",
            "lm_params_to_torch", "lm_cache_to_torch"]
 
 
+def _host_vals(a) -> np.ndarray:
+    """Host values as the port holds them: the reference's bfloat16
+    arrays (``dtype.name == "bfloat16"``, ``ml_dtypes``, which the port
+    does not import) as their ``uint16`` bits."""
+    a = np.asarray(a)
+    return a.view(BF16_CARRIER) if a.dtype.name == "bfloat16" else a
+
+
+def _vals_to_torch(a, device, scheme) -> torch.Tensor:
+    a = _host_vals(a)
+    if scheme is not None:
+        dtype = scheme.matrix_dtype
+    else:
+        dtype = torch.bfloat16 if a.dtype == BF16_CARRIER else None
+    return to_device(a, device, dtype)
+
+
 def stacked_to_torch(stacked, *, scheme=None, device=None) -> tuple:
     """The matvec operand tuple of a stacked bag.
 
@@ -52,22 +69,27 @@ def stacked_to_torch(stacked, *, scheme=None, device=None) -> tuple:
     * ELLPACK (has ``tile_cols``): ``(tile_cols, vals, local_cols)``, the
       values cast to ``scheme.matrix_dtype`` (the ELLPACK stacker keeps
       them at the CSR's dtype).
+
+    Values at bf16 — the reference's ``bfloat16`` arrays or the port's
+    ``uint16`` bits — arrive as ``torch.bfloat16`` bit for bit; with
+    ``scheme`` every layout's values are cast to ``scheme.matrix_dtype``.
     """
     device = resolve_device(device)
+    scheme = None if scheme is None else get_scheme(scheme)
     if hasattr(stacked, "iperm"):
         lane_widths = getattr(stacked, "lane_widths", None)
         return (to_device(stacked.cols, device),
-                to_device(stacked.vals, device),
+                _vals_to_torch(stacked.vals, device, scheme),
                 to_device(stacked.iperm, device, torch.int64),
                 sell_table(stacked.groups, device=device,
                            lane_widths=lane_widths,
                            slice_rows=stacked.slice_rows))
     if hasattr(stacked, "tile_cols"):
-        dtype = None if scheme is None else scheme.matrix_dtype
         return (to_device(stacked.tile_cols, device),
-                to_device(stacked.vals, device, dtype),
+                _vals_to_torch(stacked.vals, device, scheme),
                 to_device(stacked.local_cols, device))
-    return to_device(stacked.cols, device), to_device(stacked.vals, device)
+    return (to_device(stacked.cols, device),
+            _vals_to_torch(stacked.vals, device, scheme))
 
 
 def vm_state_to_torch(state, *, device=None) -> BatchedVMState:
@@ -111,7 +133,7 @@ def operator_to_torch(obj, *, scheme=None, diag=None, device=None):
     scheme = get_scheme(scheme)
     diag = np.asarray(diag)
     common = dict(tile_cols=np.asarray(obj.tile_cols),
-                  vals=np.asarray(obj.vals),
+                  vals=_host_vals(obj.vals),
                   local_cols=np.asarray(obj.local_cols), shape=shape,
                   block_rows=obj.block_rows, col_tile=obj.col_tile,
                   nnz=obj.nnz)

@@ -3,8 +3,10 @@
 G independent SPD systems are stacked along a leading lane axis and
 solved in one masked loop through one of two engines:
 
-* ``engine="vm"`` (default) — the specialized batched stream VM
-  (:mod:`repro_torch.core.vm`) running the canonical compiled program;
+* ``engine="vm"`` (default) — the batched stream VM
+  (:mod:`repro_torch.core.vm`) running the canonical compiled program
+  (or ``program=``), specialized into its runner or, with
+  ``specialize=False``, as an operand of one runner per bucket;
 * ``engine="phases"`` — :func:`repro_torch.core.phases.vsr_iteration`
   on ``[G, n]`` lanes, the oracle the VM is held to bitwise.
 
@@ -38,7 +40,8 @@ from repro_torch.core.metrics import (advance_status, finalize_status,
                                       solver_metrics, status_name,
                                       tick_health)
 from repro_torch.core.phases import vsr_iteration
-from repro_torch.core.precision import PrecisionScheme, get_scheme
+from repro_torch.core.precision import (PrecisionScheme, get_scheme,
+                                        host_values, values_tensor)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.spmv import sell_table, spmv_ellpack, spmv_sell
 from repro_torch.sparse.csr import CSRMatrix, csr_from_coo
@@ -352,17 +355,20 @@ def stack_operands(csrs: Sequence[CSRMatrix], *, backend: str, layout: str,
     """Pack a bag into one layout's device operands.
 
     Returns ``(mat, stacked, groups, n_col_tiles, bucket_dims)``: ``mat``
-    the tensors the matvec consumes (SELL ``iperm`` as int64 for
-    ``torch.gather``, then the per-lane
-    :class:`~repro_torch.kernels.spmv.SellTable` built from the lane
-    widths), ``stacked`` the host stacker's result."""
+    the tensors the matvec consumes (values at ``scheme.matrix_dtype``,
+    bf16 through its bits; SELL ``iperm`` as int64 for ``torch.gather``,
+    then the per-lane :class:`~repro_torch.kernels.spmv.SellTable` built
+    from the lane widths), ``stacked`` the host stacker's result."""
     def dev(a, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device=device, dtype=dtype)
+        return values_tensor(a, device, dtype)
+
+    def vals(a):
+        return values_tensor(host_values(a, scheme.host_matrix_dtype),
+                             device, scheme.matrix_dtype)
 
     if layout == "sell":
         stacked = stack_sell(csrs, bucket=bucket, scheme=scheme)
-        mat = (dev(stacked.cols), dev(stacked.vals),
+        mat = (dev(stacked.cols), vals(stacked.vals),
                dev(stacked.iperm, torch.int64),
                sell_table(stacked.groups, device=device,
                           lane_widths=stacked.lane_widths,
@@ -372,14 +378,13 @@ def stack_operands(csrs: Sequence[CSRMatrix], *, backend: str, layout: str,
                  *(d for rw in stacked.groups for d in rw)))
     if backend == "xla" and layout == "rowell":
         stacked = stack_rowell(csrs, bucket=bucket, scheme=scheme)
-        mat = (dev(stacked.cols), dev(stacked.vals))
+        mat = (dev(stacked.cols), vals(stacked.vals))
         return mat, stacked, None, None, (stacked.padded_rows, stacked.width)
     if backend == "pallas" and layout == "ellpack":
         stacked = stack_ellpack(
             [csr_to_ellpack(a, block_rows=block_rows, col_tile=col_tile)
              for a in csrs], bucket=bucket)
-        mat = (dev(stacked.tile_cols),
-               dev(stacked.vals.astype(scheme.host_matrix_dtype)),
+        mat = (dev(stacked.tile_cols), vals(stacked.vals),
                dev(stacked.local_cols))
         return (mat, stacked, None, stacked.n_col_tiles,
                 (*stacked.vals.shape[1:], stacked.n_col_tiles))
@@ -408,11 +413,14 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
     (default ``"cuda"``; pass ``device="cpu"`` for the plain path).
 
     Same knobs and results as :func:`repro.core.batch.jpcg_solve_batched`
-    (``engine``, ``policy``/``program``, ``layout``, ``steps_per_sync``,
-    ``detect``, ``with_status``, ``with_trace``); ``x`` in each result is
-    a tensor on ``device``.  Not ported yet: ``specialize=False`` (the
-    generic VM path), ``mesh=`` (lane sharding) and ``interpret=`` (there
-    is no interpreter: CPU tensors take the plain versions).
+    (``engine``, ``policy``/``program``, ``specialize``, ``layout``,
+    ``steps_per_sync``, ``detect``, ``with_status``, ``with_trace``);
+    ``x`` in each result is a tensor on ``device``.  ``specialize=False``
+    runs the program as an operand of one runner cached per bucket
+    (:func:`repro_torch.core.vm.make_vm_runner` with ``program=None``),
+    bitwise equal to the specialized runner.  Not ported yet: ``mesh=``
+    (lane sharding) and ``interpret=`` (there is no interpreter: CPU
+    tensors take the plain versions).
     """
     if mesh is not None or interpret is not None:
         raise NotImplementedError(
@@ -425,9 +433,6 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
     if policy is not None and program is not None:
         raise ValueError("pass either policy= (compiled for you) or "
                          "program= (pre-assembled), not both")
-    if engine == "vm" and not specialize:
-        raise NotImplementedError("the generic (specialize=False) VM path "
-                                  "is not ported yet")
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
     device = resolve_device(device)
@@ -491,10 +496,16 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
         else:
             method = "vm_batched[custom]"
         prog_np = np.asarray(program, np.int32)
-        key = executable_key("vm_solve_spec", program=prog_np, **key_kw)
-        run = _cached(key, lambda: make_vm_runner(program=prog_np,
-                                                  **runner_kw))
-        st = run(mat, diag, b, x0, tol_vec)
+        if specialize:
+            key = executable_key("vm_solve_spec", program=prog_np, **key_kw)
+            run = _cached(key, lambda: make_vm_runner(program=prog_np,
+                                                      **runner_kw))
+            st = run(mat, diag, b, x0, tol_vec)
+        else:
+            method += "|generic"
+            run = _cached(executable_key("vm_solve", **key_kw),
+                          lambda: make_vm_runner(**runner_kw))
+            st = run(prog_np, mat, diag, b, x0, tol_vec)
         xs = st.mem[BUF["x"]]
         rrs_dev, trace_dev = st.sregs[SREG["rr"]], st.trace
     elif engine == "phases":

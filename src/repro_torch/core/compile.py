@@ -32,7 +32,7 @@ from repro_torch.core.vsr import (JPCG_MODULES, LOOP_CARRIED, Module, VSRSchedul
 
 __all__ = ["CompileError", "CompiledProgram", "compile_schedule",
            "compile_policy", "canonical_program", "canonical_length",
-           "executable_key", "OPSPECS", "OpSpec"]
+           "executable_key", "PLAIN_CG_MODULES", "OPSPECS", "OpSpec"]
 
 _N_QUEUES = 8
 
@@ -72,6 +72,23 @@ OPSPECS: Dict[str, OpSpec] = {
 
 #: scalars the controller derives from dot results (paper Type-II → CTRL).
 _CTRL_OF_SCALAR = {"alpha": CTRL_ALPHA, "beta": CTRL_BETA}
+
+
+#: Plain (non-preconditioned) CG on the same module vocabulary: M5 is gone
+#: (z ≡ r'), M6 dots r'·r' for β, M7 updates p from r' directly.  With a
+#: unit diagonal this iterates identically to JPCG.
+PLAIN_CG_MODULES: Tuple[Module, ...] = (
+    Module("M1_spmv",    reads=("p",),       writes=("ap",), heavy=True),
+    Module("M2_dot_pap", reads=("p", "ap"),  writes=(), scalar_out="alpha"),
+    Module("M3_upd_x",   reads=("x", "p"),   writes=("x'",),
+           scalar_in=("alpha",)),
+    Module("M4_upd_r",   reads=("r", "ap"),  writes=("r'",),
+           scalar_in=("alpha",)),
+    Module("M6_dot_rz",  reads=("r'",),      writes=(), scalar_out="beta"),
+    Module("M7_upd_p",   reads=("r'", "p"),  writes=("p'",),
+           scalar_in=("beta",)),
+    Module("M8_dot_rr",  reads=("r'",),      writes=(), scalar_out="rr"),
+)
 
 
 def _buf(vec: str) -> int:

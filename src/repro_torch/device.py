@@ -25,12 +25,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 def to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     """``a`` — a tensor, or anything numpy reads (host arrays, the JAX
     package's arrays, scalars) — as a tensor on ``device``.  numpy copies
-    into a writable, contiguous array and keeps 0-d scalars 0-d; bfloat16
-    (``ml_dtypes``, which torch does not read) goes through its bits."""
+    into a writable, contiguous array and keeps 0-d scalars 0-d.  bf16
+    goes through its bits (:func:`repro_torch.core.precision
+    .values_tensor`): an ``ml_dtypes`` bfloat16 array, which torch does not
+    read, and any host array asked for at ``torch.bfloat16`` (``uint16``
+    there is the port's bf16 carrier; floats round as the reference's
+    ``astype(jnp.bfloat16)`` does)."""
     if not isinstance(a, torch.Tensor):
         a = np.array(a)
-        if a.dtype.name == "bfloat16":
-            a = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-        else:
-            a = torch.from_numpy(a)
+        if a.dtype.name == "bfloat16" or dtype == torch.bfloat16:
+            from repro_torch.core.precision import values_tensor
+            return values_tensor(a, device, torch.bfloat16).to(dtype=dtype)
+        a = torch.from_numpy(a)
     return a.to(device=device, dtype=dtype)

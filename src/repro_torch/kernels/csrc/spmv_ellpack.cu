@@ -33,7 +33,7 @@ __device__ __forceinline__ void load_slab(const V* __restrict__ vp, const int* _
                                           int E, int R, V (&v)[WP], int (&c)[WP]) {
 #pragma unroll
   for (int e = 0; e < WP; ++e) {
-    v[e] = e < E ? __ldg(vp + static_cast<long long>(e) * R) : V(0);
+    v[e] = e < E ? __ldg(vp + static_cast<long long>(e) * R) : repro::zero<V>();
     c[e] = e < E ? __ldg(cp + static_cast<long long>(e) * R) : 0;
   }
 }
@@ -62,7 +62,7 @@ __global__ void spmv_ellpack_reg(const int* __restrict__ tile_cols, const V* __r
     tc = __ldg(tp);
     load_slab<WP>(vp, cp, E, R, v, c);
   }
-  ACC acc = ACC(0);
+  ACC acc = repro::zero<ACC>();
   for (int t = 0; t < T; ++t) {
     if constexpr (!kAhead) {
       tc = __ldg(tp + t);
@@ -72,8 +72,8 @@ __global__ void spmv_ellpack_reg(const int* __restrict__ tile_cols, const V* __r
     ACC lv[WP];
 #pragma unroll
     for (int e = 0; e < WP; ++e) {
-      lv[e] = e < E ? repro::mul_rn(static_cast<ACC>(v[e]), static_cast<ACC>(__ldg(xt + c[e])))
-                    : ACC(0);
+      lv[e] = e < E ? repro::mul_rn(repro::widen<ACC>(v[e]), repro::widen<ACC>(__ldg(xt + c[e])))
+                    : repro::zero<ACC>();
     }
     if constexpr (kAhead) {
       // slab t + 1's operands (the last slab reloads its own) before slab t's tree
@@ -96,14 +96,14 @@ __global__ void spmv_ellpack_wide(const int* __restrict__ tile_cols, const V* __
   const int r = threadIdx.x;
   const long long gi = static_cast<long long>(blockIdx.y) * B + blockIdx.x;
   const IN* xg = x_tiles + static_cast<long long>(blockIdx.y) * n_ct * C;
-  ACC acc = ACC(0);
+  ACC acc = repro::zero<ACC>();
   for (int t = 0; t < T; ++t) {
     const IN* xt = xg + static_cast<long long>(__ldg(tile_cols + gi * T + t)) * C;
     const long long base = (gi * T + t) * static_cast<long long>(E) * R + r;
     const ACC s = repro::tree_sum<ACC>(E, [&](int e) {
       const long long q = base + static_cast<long long>(e) * R;
-      return repro::mul_rn(static_cast<ACC>(__ldg(vals + q)),
-                           static_cast<ACC>(__ldg(xt + __ldg(lcols + q))));
+      return repro::mul_rn(repro::widen<ACC>(__ldg(vals + q)),
+                           repro::widen<ACC>(__ldg(xt + __ldg(lcols + q))));
     });
     acc = repro::add_rn(acc, s);
   }
@@ -140,8 +140,9 @@ cudaError_t launch(const void* tile_cols, const void* vals, const void* lcols,
 
 }  // namespace
 
-// scheme: 0 fp64 (V f64, x f64, acc f64), 1 mixed_v1 (f32, f32, f32),
-//         2 mixed_v2 (f32, f32, f64), 3 mixed_v3 (f32, f64, f64).
+// scheme: 0 fp64 (V f64, x f64, acc f64), 1 mixed_v1 and tpu_fp32 (f32, f32, f32),
+//         2 mixed_v2 (f32, f32, f64), 3 mixed_v3 (f32, f64, f64),
+//         4 tpu_v1 (bf16, bf16, bf16), 5 tpu_v2 (bf16, bf16, f32), 6 tpu_v3 (bf16, f32, f32).
 // Shapes: tile_cols [G,B,T], vals/lcols [G,B,T,E,R], x_tiles [G,n_ct,C],
 // y [G,B,R].  Returns cudaGetLastError().
 extern "C" int spmv_ellpack(int scheme, const void* tile_cols, const void* vals,
@@ -169,6 +170,18 @@ extern "C" int spmv_ellpack(int scheme, const void* tile_cols, const void* vals,
     case 3:
       err = launch<float, double, double>(tile_cols, vals, lcols, x_tiles, y, G, B, T, E, R,
                                           n_ct, C, s);
+      break;
+    case 4:
+      err = launch<repro::bf16, repro::bf16, repro::bf16>(tile_cols, vals, lcols, x_tiles, y,
+                                                          G, B, T, E, R, n_ct, C, s);
+      break;
+    case 5:
+      err = launch<repro::bf16, repro::bf16, float>(tile_cols, vals, lcols, x_tiles, y, G, B,
+                                                    T, E, R, n_ct, C, s);
+      break;
+    case 6:
+      err = launch<repro::bf16, float, float>(tile_cols, vals, lcols, x_tiles, y, G, B, T, E,
+                                              R, n_ct, C, s);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -97,7 +97,7 @@ struct Row {
 // product exactly as the plain version computes it
 template <typename ACC>
 __device__ __forceinline__ ACC product(ACC v, ACC xv) {
-  return repro::add_rn(repro::mul_rn(v, xv), repro::mul_rn(xv, ACC(0)));
+  return repro::add_rn(repro::mul_rn(v, xv), repro::mul_rn(xv, repro::zero<ACC>()));
 }
 
 // The K leaves j0 + dj*t (t < K) of a row, folded by the halving tree.  All
@@ -111,16 +111,16 @@ __device__ __forceinline__ ACC leaf_tree(const Row<V, I, IN>& row, int j0, int d
     const int j = j0 + dj * t;
     const long long q = static_cast<long long>(j) * row.stride;
     c[t] = j < row.width ? __ldg(row.cp + q) : I(0);
-    v[t] = j < row.width ? __ldg(row.vp + q) : V(0);
+    v[t] = j < row.width ? __ldg(row.vp + q) : repro::zero<V>();
   }
   ACC lv[K];
 #pragma unroll
   for (int t = 0; t < K; ++t) {
     const int j = j0 + dj * t;
     lv[t] = j < row.width
-                ? product(static_cast<ACC>(v[t]),
-                          static_cast<ACC>(__ldg(row.xl + static_cast<int>(c[t]))))
-                : ACC(0);  // the +0 pad leaves of tree_sum
+                ? product(repro::widen<ACC>(v[t]),
+                          repro::widen<ACC>(__ldg(row.xl + static_cast<int>(c[t]))))
+                : repro::zero<ACC>();  // the +0 pad leaves of tree_sum
   }
   repro::fold<K / 2, K>(lv);
   return lv[0];
@@ -155,13 +155,13 @@ __device__ __forceinline__ ACC thread_tree(const Row<V, I, IN>& row, int s, int 
   if constexpr (kWide) {
     return repro::tree_sum<ACC>(M, [&](int m) {
       const int j = s + S * m;
-      if (j >= row.width) return ACC(0);
+      if (j >= row.width) return repro::zero<ACC>();
       const long long q = static_cast<long long>(j) * row.stride;
-      return product(static_cast<ACC>(__ldg(row.vp + q)),
-                     static_cast<ACC>(__ldg(row.xl + static_cast<int>(__ldg(row.cp + q)))));
+      return product(repro::widen<ACC>(__ldg(row.vp + q)),
+                     repro::widen<ACC>(__ldg(row.xl + static_cast<int>(__ldg(row.cp + q)))));
     });
   } else {
-    return ACC(0);  // not launched: the host takes kWide when M > kRegLeaves
+    return repro::zero<ACC>();  // not launched: the host takes kWide when M > kRegLeaves
   }
 }
 
@@ -201,7 +201,7 @@ spmv_sell_kernel(const I* __restrict__ cols, const V* __restrict__ vals,
   const int s = log_s ? static_cast<int>(__brev(static_cast<unsigned>(q)) >> (32 - log_s)) : 0;
   const int lr = (bx - e.block0) * rb + r;
   const bool live = lr < e.rows;
-  ACC acc = ACC(0);
+  ACC acc = repro::zero<ACC>();
   if (live && e.width > 0) {
     const long long off = static_cast<long long>(g) * L + e.base + lr;
     const Row<V, I, IN> row{cols + off, vals + off, x + static_cast<long long>(g) * n_pad,
@@ -261,8 +261,9 @@ cudaError_t launch_index(int index_bytes, const void* cols, const void* vals, co
 
 }  // namespace
 
-// scheme: 0 fp64 (V f64, x f64, acc f64), 1 mixed_v1 (f32, f32, f32),
-//         2 mixed_v2 (f32, f32, f64), 3 mixed_v3 (f32, f64, f64).
+// scheme: 0 fp64 (V f64, x f64, acc f64), 1 mixed_v1 and tpu_fp32 (f32, f32, f32),
+//         2 mixed_v2 (f32, f32, f64), 3 mixed_v3 (f32, f64, f64),
+//         4 tpu_v1 (bf16, bf16, bf16), 5 tpu_v2 (bf16, bf16, f32), 6 tpu_v3 (bf16, f32, f32).
 // table: int64[E, 8] entries; block_map: int32[map_rows, grid_x] entry of
 // each block (map_rows 1: one map for every lane; G: one per lane); the
 // launch has grid_x * G blocks.  wide: some entry has more than kRegLeaves
@@ -291,6 +292,18 @@ extern "C" int spmv_sell(int scheme, int index_bytes, const void* cols, const vo
           wide, s));
     case 3:
       return static_cast<int>(launch_index<float, double, double>(
+          index_bytes, cols, vals, x, y, G, L, n_pad, table, block_map, grid_x, map_stride,
+          wide, s));
+    case 4:
+      return static_cast<int>(launch_index<repro::bf16, repro::bf16, repro::bf16>(
+          index_bytes, cols, vals, x, y, G, L, n_pad, table, block_map, grid_x, map_stride,
+          wide, s));
+    case 5:
+      return static_cast<int>(launch_index<repro::bf16, repro::bf16, float>(
+          index_bytes, cols, vals, x, y, G, L, n_pad, table, block_map, grid_x, map_stride,
+          wide, s));
+    case 6:
+      return static_cast<int>(launch_index<repro::bf16, float, float>(
           index_bytes, cols, vals, x, y, G, L, n_pad, table, block_map, grid_x, map_stride,
           wide, s));
     default:

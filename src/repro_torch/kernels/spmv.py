@@ -31,8 +31,15 @@ replace the three Pallas SpMV kernels of the JAX package:
 Both are bound by bytes on the H100: each stored slot (value + index) is
 read once, x gathered, y written once, at 2 flops per slot — the least
 time is those bytes over 3.35 TB/s.  Their designs keep the stream at
-the scheme's at-rest width (fp32 values under the mixed schemes, int16
-indices below 2^15 rows in SELL) and keep x reads on chip (L2).
+the scheme's at-rest width (fp32 values under the mixed schemes, bf16
+under the TPU tier's ``tpu_v*``, int16 indices below 2^15 rows in SELL)
+and keep x reads on chip (L2).
+
+Each kernel is instantiated per (value, x, accumulator) dtype triple
+(:data:`_INSTANTIATION`): the faithful schemes', mixed_v1's (f32, f32,
+f32) for ``tpu_fp32`` too, and the tier's bf16 triples.  At a bf16
+accumulator (``tpu_v1``) every product and sum rounds to bf16, as eager
+PyTorch rounds its bf16 ops (``csrc/tree_sum.cuh``).
 
 Bracketing is part of the contract: the SELL kernel computes
 ``rounded_products`` (``v·x + x·0``) and the fixed halving ``tree_sum``
@@ -64,11 +71,25 @@ __all__ = ["spmv_sell", "spmv_sell_plain", "SellTable", "sell_table",
            "spmv_ellpack", "spmv_ellpack_plain", "spmv_ell",
            "spmv_ell_plain", "LAUNCHES", "reset_launches"]
 
-#: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {"spmv_sell": 0, "spmv_ellpack": 0, "spmv_ell": 0}
+_KERNELS = ("spmv_sell", "spmv_ellpack", "spmv_ell")
+#: The TPU tier's schemes: their launches are also counted apart, under
+#: ``"<kernel>[<scheme>]"``.
+TIER_SCHEMES = ("tpu_fp32", "tpu_v1", "tpu_v2", "tpu_v3")
 
-#: scheme name -> the kernels' template instantiation code.
-_SCHEME_CODE = {"fp64": 0, "mixed_v1": 1, "mixed_v2": 2, "mixed_v3": 3}
+#: Kernel launches per wrapper since the last :func:`reset_launches`: every
+#: launch under the kernel's name, a TPU-tier one also under
+#: ``"<kernel>[<scheme>]"``.
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    _KERNELS + tuple(f"{k}[{s}]" for k in _KERNELS for s in TIER_SCHEMES), 0)
+
+_f64, _f32, _bf16 = torch.float64, torch.float32, torch.bfloat16
+#: (matrix, x, accumulator) dtypes -> the kernels' template instantiation
+#: code (``scheme`` in ``csrc/spmv_{sell,ellpack}.cu``).  ``tpu_fp32`` is
+#: mixed_v1's (f32, f32, f32); the caller casts y to ``vector_dtype``.
+_INSTANTIATION = {(_f64, _f64, _f64): 0, (_f32, _f32, _f32): 1,
+                  (_f32, _f32, _f64): 2, (_f32, _f64, _f64): 3,
+                  (_bf16, _bf16, _bf16): 4, (_bf16, _bf16, _f32): 5,
+                  (_bf16, _f32, _f32): 6}
 _INDEX_BYTES = {torch.int16: 2, torch.int32: 4}
 #: Threads of one SELL block (``kThreads`` in ``csrc/spmv_sell.cu``), the
 #: most threads a row gets, and the fewest leaves a thread takes while a
@@ -88,12 +109,19 @@ def reset_launches() -> None:
 
 
 def _scheme_code(scheme: PrecisionScheme) -> int:
+    key = (scheme.matrix_dtype, scheme.spmv_in_dtype, scheme.spmv_acc_dtype)
     try:
-        return _SCHEME_CODE[scheme.name]
+        return _INSTANTIATION[key]
     except KeyError:
         raise NotImplementedError(
-            f"no CUDA SpMV instantiation for scheme {scheme.name!r}; the "
-            f"kernels cover {sorted(_SCHEME_CODE)}") from None
+            f"no CUDA SpMV instantiation for scheme {scheme.name!r} "
+            f"{key}") from None
+
+
+def _count(name: str, scheme: PrecisionScheme) -> None:
+    LAUNCHES[name] += 1
+    if scheme.name in TIER_SCHEMES:
+        LAUNCHES[f"{name}[{scheme.name}]"] += 1
 
 
 # ------------------------------------------------------------------- SELL
@@ -356,7 +384,7 @@ def spmv_sell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor, *,
                  table.grid_x, map_rows, int(table.wide),
                  torch.cuda.current_stream().cuda_stream)
     raise_on_error("spmv_sell", "spmv_sell", err)
-    LAUNCHES["spmv_sell"] += 1
+    _count("spmv_sell", scheme)
     return y
 
 
@@ -400,7 +428,7 @@ def spmv_ellpack(tile_cols: torch.Tensor, vals: torch.Tensor,
                                   scheme=scheme)
     y = _launch_ellpack("spmv_ellpack", tile_cols, vals, local_cols,
                         x_tiles, scheme)
-    LAUNCHES["spmv_ellpack"] += 1
+    _count("spmv_ellpack", scheme)
     return y
 
 
@@ -471,5 +499,5 @@ def spmv_ell(tile_cols: torch.Tensor, vals: torch.Tensor,
             f"{tuple(vals.shape)}, {tuple(x_tiles.shape)}")
     y = _launch_ellpack("spmv_ell", tile_cols[None], vals[None],
                         local_cols[None], x_tiles[None], scheme)
-    LAUNCHES["spmv_ell"] += 1
+    _count("spmv_ell", scheme)
     return y[0]

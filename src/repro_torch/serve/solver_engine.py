@@ -11,7 +11,12 @@ Requests are grouped into **pools** keyed by ``(scheme, policy)``; each
 pool owns ``batch_slots`` slots, its own bucket (padded operand shape,
 sized from the first admitted problem and grown on demand), its own
 matrix layout (resolved at first admit by the padding-ratio heuristic
-when ``layout="auto"``) and its own program.
+when ``layout="auto"``) and its own program.  By default each pool steps
+through a stepper specialized to its program; with
+``SolverEngineConfig(specialize=False)`` the program is an operand of one
+generic stepper per bucket, so pools that differ only in policy share
+it (bitwise the same results).  Every scheme runs, the TPU tier's
+(``tpu_*``, bf16 values) included.
 
 Admission packs the problem into a free slot and runs the JPCG warm-up
 (r₀ = b − A·x₀, z₀ = M⁻¹r₀) for that lane through the pool's own SpMV —
@@ -44,7 +49,8 @@ from repro_torch.core.metrics import (Metrics, STATUS_MAXITER,
                                       STATUS_RUNNING, initial_status,
                                       is_breakdown, is_breakdown_codes,
                                       status_name)
-from repro_torch.core.precision import get_scheme
+from repro_torch.core.precision import (get_scheme, host_values,
+                                        values_tensor)
 from repro_torch.core.vm import BatchedVMState, make_vm_stepper
 from repro_torch.device import resolve_device
 from repro_torch.kernels.spmv import sell_table
@@ -73,6 +79,9 @@ class SolverEngineConfig:
     layout: str = "auto"              # "auto" | "rowell" | "sell" (xla)
     #                                   "auto" | "ellpack" | "sell" (pallas);
     #                                   auto resolves per pool at first admit
+    specialize: bool = True           # program-specialized steppers; False:
+    #                                   one generic stepper per bucket runs
+    #                                   every pool's program as an operand
     steps_per_sync: int = 8           # VM ticks per termination sync
     donate: bool = True               # step the pool state in place
     compact_fraction: float = 0.5     # repack lanes when live/lanes < this
@@ -122,8 +131,9 @@ class _Pool:
         return dims[0] * self.cfg.block_rows if self._ellpack else dims[0]
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device=self.device, dtype=dtype)
+        """A host array on the pool's device (bf16 values through their
+        bits, :func:`repro_torch.core.precision.values_tensor`)."""
+        return values_tensor(a, self.device, dtype)
 
     def _sell_mat(self, arrays, lane_widths) -> tuple:
         """``(cols, vals, iperm)`` plus the SELL kernel's table for these
@@ -173,7 +183,7 @@ class _Pool:
                 n_pad=n_pad, widths=self.sell_widths, scheme=self.scheme)
             self.groups = stacked.groups
             self.lane_widths = stacked.lane_widths
-            mat = (self._tensor(stacked.cols), self._tensor(stacked.vals),
+            mat = (self._tensor(stacked.cols), self._tensor(stacked.vals, md),
                    self._tensor(stacked.iperm, torch.int64))
         elif not self._ellpack:
             N, W = dims
@@ -311,7 +321,8 @@ class _Pool:
                                             (W, N)).copy()
                 lane_cols[:w_a, :n] = cols_l.T
                 lane_vals = np.zeros((W, N), self.scheme.host_matrix_dtype)
-                lane_vals[:w_a, :n] = vals_l.T
+                lane_vals[:w_a, :n] = host_values(
+                    vals_l.T, self.scheme.host_matrix_dtype)
                 lanes = (lane_cols, lane_vals)
             else:
                 B, T, L, _ = self.bucket
@@ -376,20 +387,26 @@ class _Pool:
 
     def step(self) -> None:
         cfg = self.cfg
-        stepper = make_vm_stepper(
+        stepper_kw = dict(
             backend=cfg.backend, scheme=self.scheme, bucket=self.bucket,
             chunk=cfg.chunk_iters, layout=self.layout, groups=self.groups,
             index_bytes=self.mat[2 if self._ellpack else 0].element_size(),
             col_tile=cfg.col_tile,
             n_col_tiles=self.bucket[-1] if self._ellpack else None,
             steps_per_sync=cfg.steps_per_sync, donate=cfg.donate,
-            detect=cfg.detect, program=self.program_np)
+            detect=cfg.detect)
         # Host copies of the pre-step counters: a donating step updates
         # the state tensors in place.
         it0 = _host(self.state.it)
         st0 = _host(self.state.status)
-        self.state = stepper(self.mat, self.state, self.tol,
-                             self.maxiter_vec)
+        if cfg.specialize:
+            stepper = make_vm_stepper(program=self.program_np, **stepper_kw)
+            self.state = stepper(self.mat, self.state, self.tol,
+                                 self.maxiter_vec)
+        else:
+            stepper = make_vm_stepper(**stepper_kw)
+            self.state = stepper(self.program_np, self.mat, self.state,
+                                 self.tol, self.maxiter_vec)
         # Accounting: committed iterations plus one discarded program
         # execution per lane that broke down during this step (its tick
         # ran the SpMV before the writes were thrown away).  Frozen

@@ -11,8 +11,9 @@ Padded slots carry ``val = 0``; row-ELL and sliced-ELL padding
 *self-gathers* (column = own row), ELLPACK padding reads local column 0.
 Padded *rows* get a unit diagonal and zero rhs from the caller, so their
 residual is identically zero and they never influence termination.
-Values are packed at ``scheme.host_matrix_dtype`` (numpy), indices at
-:func:`index_dtype`.
+Values are packed at ``scheme.host_matrix_dtype`` (numpy; bf16 as its
+``uint16`` bits, rounded as the reference's ``astype(jnp.bfloat16)``),
+indices at :func:`index_dtype`.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.precision import host_values
 from repro_torch.sparse.ellpack import EllpackMatrix
 
 __all__ = ["bucket_up", "pad_ellpack", "stack_ellpack",
@@ -241,7 +243,7 @@ def stack_rowell(csrs: Sequence, *, bucket: bool = True,
     vals = np.zeros((G, W, n_pad), vdt)
     for g, (c, v) in enumerate(lanes):
         cols[g, : c.shape[1], : c.shape[0]] = c.T
-        vals[g, : v.shape[1], : v.shape[0]] = v.T.astype(vdt)
+        vals[g, : v.shape[1], : v.shape[0]] = host_values(v.T, vdt)
     return StackedRowEll(cols, vals,
                          shapes=tuple(a.shape for a in csrs),
                          nnzs=tuple(a.nnz for a in csrs))
@@ -418,7 +420,7 @@ def stack_sell(csrs: Sequence, *, bucket: bool = True, scheme=None,
                 c = np.broadcast_to(rws[:, None], (rows, w))
                 v = np.zeros((rows, w), a.data.dtype)
             cols[g, off:off + rows * w] = c.T.astype(idt).ravel()
-            vals[g, off:off + rows * w] = v.T.astype(vdt).ravel()
+            vals[g, off:off + rows * w] = host_values(v.T, vdt).ravel()
             off += rows * w
     return StackedSell(cols, vals, iperm, groups, slice_rows=C,
                        sort_window=sigma,

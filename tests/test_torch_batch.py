@@ -160,7 +160,6 @@ def test_solver_metrics_account_exactly():
 
 def test_unported_options_raise():
     bag = _bag(port_sparse)
-    for kw in (dict(specialize=False), dict(mesh=object()),
-               dict(interpret=True)):
+    for kw in (dict(mesh=object()), dict(interpret=True)):
         with pytest.raises(NotImplementedError):
             jpcg_solve_batched(bag, device="cpu", **kw)

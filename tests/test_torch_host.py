@@ -144,7 +144,19 @@ def test_canonical_program_words_identical(policy):
     _equal(canonical_program(policy), ref_canonical_program(policy))
 
 
-def test_tpu_tier_stops_at_stacking():
-    """bf16 at-rest packing is not in the port yet: it says so."""
-    with pytest.raises(NotImplementedError):
-        stack_rowell([port_sparse.poisson_2d(4)], scheme=get_scheme("tpu_v3"))
+@pytest.mark.parametrize("scheme", ["tpu_fp32", "tpu_v1", "tpu_v2",
+                                    "tpu_v3"])
+def test_tpu_tier_stops_at_stacking(scheme):
+    """The tier no longer stops at stacking: its values pack as the
+    reference's, bf16 carried as its ``uint16`` bits (the reference's
+    ``astype(jnp.bfloat16)`` viewed as ``uint16``), fp32 as fp32."""
+    port, ref = _bags(port_sparse)["skewed"], _bags(ref_sparse)["skewed"]
+    sch, rsch = get_scheme(scheme), ref_get_scheme(scheme)
+    for stack, ref_stack in ((stack_rowell, ref_stack_rowell),
+                             (stack_sell, ref_stack_sell)):
+        p, r = stack(port, scheme=sch), ref_stack(ref, scheme=rsch)
+        want = np.asarray(r.vals)
+        if want.dtype.name == "bfloat16":
+            want = want.view(np.uint16)
+        _equal(p.vals, want)
+        _equal(p.cols, r.cols)

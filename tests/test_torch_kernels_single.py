@@ -301,9 +301,11 @@ def test_phase_ops_on_cpu_are_the_plain_versions():
     assert torch.equal(pn, rn / dg + beta * p)
     assert torch.equal(xn, x + alpha * p)
     assert set(ops.launches().values()) == {0}
-    assert set(ops.launches()) == {"spmv_sell", "spmv_ellpack", "spmv_ell",
-                                   "dot", "dot3", "phase2", "phase3",
-                                   "flash_attention"}
+    kernels = {"spmv_sell", "spmv_ellpack", "spmv_ell", "dot", "dot3",
+               "phase2", "phase3", "flash_attention"}
+    tier = {f"{k}[{s}]" for k in ("spmv_sell", "spmv_ellpack", "spmv_ell")
+            for s in ("tpu_fp32", "tpu_v1", "tpu_v2", "tpu_v3")}
+    assert set(ops.launches()) == kernels | tier
     # the chunked sums agree with batch.tree_sum spelled by hand
     prod = torch.stack([rn * rn, rn * (rn / dg)])
     assert torch.equal(s, D.chunk_tree(prod))
