@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py        # full size, phases 0-9; takes no options
+    python3 chip_smoke.py        # full size, phases 0-9 (6b, 6c); no options
 
 0. The build: every kernel's registers, stack frame and spills from the
    ptxas report; each ELLPACK instantiation with a register tree
@@ -76,6 +76,28 @@
    rtol 1e-4, atol 1e-6) and the pipelined x agrees with them.  Each is
    timed as a call from the CSR and as the loop alone on a pre-built
    operator; the mixed_v3 ``pallas`` loop is profiled once.
+6b. Lane sharding: ``jpcg_solve_batched(mesh=)`` on the G = 8 bag
+   (mixed_v3, SELL) over ``lane_mesh()`` (every visible card; D = 1 on a
+   one-card machine) and over ``(cuda:0, cuda:0)`` (D = 2, both shards on
+   the one card), each held bit for bit against phase 2's unsharded solve
+   (x, rr, iterations, statuses); each loop timed alone on operands packed
+   once on the host and cut per mesh, and profiled (ms/tick, kernels a
+   tick, busy share).  A D = 2 ``SolverEngine`` on the four Poisson lanes
+   through ELLPACK is held bit for bit against the unsharded engine.  A
+   record beside it: how many of 8 rows' bits CUDA's plain ``sum(-1)``
+   changes between G = 8 and 2 × G = 4; and a check that the staged row
+   dot of the batched loop changes none between G = 8 and G = 4, 2, 1, at
+   n up to 8,388,611, fp64 and fp32.
+6c. The row-distributed CG (``repro_torch.distributed.make_dist_solver``)
+   on a world-size-1 NCCL group (``file://`` rendezvous in a temporary
+   directory, destroyed after): ``poisson_2d(1000)``, mixed_v3, ``vsr``
+   and ``pipelined``, ``comm="allgather"`` (one shard has no neighbour,
+   so no halo); rr ≤ 1e-12 and a true residual ≤ 1e-6; ``vsr`` within ±1
+   iteration of phase 6's ``vsr`` × ``xla`` and max |Δx| ≤ 1e-9 · max |x|,
+   ``pipelined`` within ±2 of phase 6's ``pipelined`` × ``xla`` and x
+   within rtol 1e-4, atol 1e-6; a second solve repeats every bit; 2
+   all-reduces an iteration for ``vsr``, 1 for ``pipelined``; timed and
+   profiled.
 7. ``flash_attention`` against its plain version on the card, within a
    stated tolerance (not bitwise: the kernel sums the softmax over K tiles
    in its own order): gemma3-1b's attention shapes (BH = 8, S = T = 4,096,
@@ -108,16 +130,18 @@
    equals ``forward``'s argmax; the bf16 tokens' agreement with fp32 is
    printed as a rate.
 
-Launch counters are set to 0 right before the solves of phases 2, 3 and
-6 and before phase 8, and read right after; each kernel of a path must
-have launched on it (``dot3`` has no solver path: phase 5 launches it;
-nor have ``spmv_ell`` at ``tpu_fp32``/``tpu_v1``/``tpu_v2``).  A tier
+Launch counters are set to 0 right before the solves of phases 2, 3, 6,
+6b and 6c and before phase 8, and read right after; each kernel of a path
+must have launched on it (6b: ``spmv_sell`` and ``spmv_ellpack``; 6c runs
+the reference's plain banked-ELL product, no kernel; ``dot3`` has no
+solver path: phase 5 launches it; nor have ``spmv_ell`` at
+``tpu_fp32``/``tpu_v1``/``tpu_v2``).  A tier
 instantiation counts under its kernel's name and, apart, under
 ``<kernel>[<scheme>]``; the ``kernels`` line lists each such entry.
 No path is cut in depth: every phase runs at the size above.
 Any failed check raises, and so does any kernel's time under 95 % of its
-bound.  The last line is the JSON result; the line before the card's is
-the LM path's numbers.
+bound.  The last line is the JSON result; before the card's line come the
+sharded and distributed phases' numbers, then the LM path's.
 """
 from __future__ import annotations
 
@@ -150,8 +174,16 @@ TIER_RTOL = 1e-5
 SHARE_MAX = 1.05
 
 
+_START = time.perf_counter()
+
+
 def log(*args):
     print(*args, flush=True)
+
+
+def log_phase(title: str):
+    """A phase's header, with the seconds since the script started."""
+    log(f"{title} [{time.perf_counter() - _START:.0f} s]")
 
 
 def card_line() -> str:
@@ -752,6 +784,7 @@ def phase_solve(bag, dev):
              for backend in ("xla", "pallas")
              if (s, backend) != ("tpu_v3", "xla")]
     profiles = {}
+    main = None
     for n_run, (scheme, backend, csrs, full) in enumerate(runs):
         layout = choose_layout(
             csrs, default="rowell" if backend == "xla" else "ellpack")
@@ -765,6 +798,8 @@ def phase_solve(bag, dev):
             out[engine] = _solve(csrs, dev, scheme=scheme, backend=backend,
                                  **ekw)
         vm, t_vm = out["vm"]
+        if n_run == 0:
+            main = vm
         for other in [e for e in engines if e != "vm"]:
             same = _bits if other == "generic" else _same
             for g, (r_v, r_o) in enumerate(zip(vm, out[other][0])):
@@ -844,7 +879,7 @@ def phase_solve(bag, dev):
                 run_g, args, loop_g, label=" (generic)")
             row["generic_s"] = t_g
             del st_g
-    return rows, profiles
+    return rows, profiles, main
 
 
 # -------------------------------------------------------------- phase 3
@@ -1194,9 +1229,10 @@ def _single(fn):
     return res, time.perf_counter() - t0
 
 
-def phase_single_solve(a, dev) -> dict:
+def phase_single_solve(a, dev):
     """``jpcg_solve`` at full size on every requested method, backend and
-    scheme; returns the launches of the calls from the CSR."""
+    scheme; returns the launches of the calls from the CSR, and each run's
+    result and loop time by ``(method, backend, scheme)``."""
     import numpy as np
     import torch
     from repro_torch import jpcg_solve
@@ -1204,7 +1240,7 @@ def phase_single_solve(a, dev) -> dict:
     from repro_torch.kernels import ops
 
     launches = {}
-    out = {}
+    out, loops = {}, {}
     for method, backend, scheme in SINGLE_RUNS:
         tol = solve_tol(scheme, [a])
         kw = dict(method=method, backend=backend, scheme=scheme,
@@ -1246,6 +1282,7 @@ def phase_single_solve(a, dev) -> dict:
                                  f"took {loop.iterations}, the call {its}; "
                                  f"x equal {torch.equal(loop.x, res.x)}")
         out[(method, backend, scheme)] = res
+        loops[(method, backend, scheme)] = loop_s
         log(f"  {method}/{backend}/{scheme}: {its} iterations (rr "
             f"{res.rr:.3e}, tol {kw['tol']:.3e}), call {call_s:.3f} s "
             f"({call_s / its * 1e3:.3f} ms/iteration); operator build "
@@ -1274,7 +1311,313 @@ def phase_single_solve(a, dev) -> dict:
                                    rtol=1e-4, atol=1e-6, err_msg=label)
     log("  mixed_v3: vsr pallas ≡ xla (iterations ±1, x within rtol 1e-4, "
         "atol 1e-6); pipelined x within the same tolerance")
-    return launches
+    return launches, out, loops
+
+
+# ------------------------------------------------------------- phase 6b
+def _shard_states(st):
+    """A runner's result as a list of lane shards' states."""
+    from repro_torch.core.shard import Shards
+    return list(st) if isinstance(st, Shards) else [st]
+
+
+#: ticks (iterations) of the profiled window in phases 6b and 6c: the
+#: profiler's post-processing grows with the events it holds, and a tick's
+#: kernels do not depend on how many lanes are still live
+PROFILE_TICKS = 100
+
+
+def _loop_profile(window, args, loop_s: float, ticks: int,
+                  label: str) -> dict:
+    """The loop timed at ``loop_s`` over ``ticks`` ticks, and ``window``
+    (the same runner stopped after PROFILE_TICKS ticks) profiled: ms per
+    tick, kernels and device ms per tick, and the device-busy share of
+    the unprofiled tick."""
+    _, wall, ev = device_profile(lambda: window(*args))
+    busy_ms = sum(t for _, t, _ in ev)
+    n_k = sum(c for _, _, c in ev)
+    ms = loop_s / ticks * 1e3
+    row = dict(ticks=ticks, loop_s=loop_s, ms_per_tick=ms,
+               kernels_per_tick=n_k / PROFILE_TICKS,
+               busy_ms_per_tick=busy_ms / PROFILE_TICKS,
+               busy_share=busy_ms / PROFILE_TICKS / ms)
+    log(f"    {label} loop alone: {loop_s:.3f} s over {ticks} ticks = "
+        f"{ms:.3f} ms/tick; profiled over its first {PROFILE_TICKS} "
+        f"ticks: {row['kernels_per_tick']:.1f} kernels/tick, device busy "
+        f"{row['busy_ms_per_tick']:.3f} ms/tick = {row['busy_share']:.1%} "
+        f"({wall:.3f} s profiled)")
+    return row
+
+
+#: (n, dtype) of the row-dot check: the bag's n_pad, and lanes of 4 M and
+#: ~8.4 M rows (long rows are where CUDA's plain sum splits a row over
+#: blocks by the number of rows), at the faithful schemes' fp64 vectors
+#: and the tier's fp32
+ROW_DOT_CASES = ((262144, "float64"), (4194304, "float64"),
+                 (8388611, "float64"), (262144, "float32"),
+                 (8388611, "float32"))
+
+
+def _row_dot_lane_invariance(dev):
+    """A record beside the sharded solve: CUDA's plain ``sum`` over the
+    last dim of [G, n] gives a row other bits at G = 4 than at G = 8, which
+    is why the batched row dot is staged (``core.batch._row_dot``).  The
+    staged dot must give every row the same bits at G = 8 as cut into
+    G = 4, 2 and 1, at each of ``ROW_DOT_CASES``."""
+    import torch
+    from repro_torch.core.batch import _row_dot
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rows_moved(f, a, b, g):
+        whole = f(a, b)
+        cut = torch.cat([f(a[i:i + g], b[i:i + g]) for i in range(0, 8, g)])
+        return int((whole != cut).sum())
+
+    def bits(f):
+        return lambda u, v: f(u, v).view(
+            torch.int64 if u.dtype == torch.float64 else torch.int32)
+
+    plain, staged = None, {}
+    for n, dtype in ROW_DOT_CASES:
+        dt = getattr(torch, dtype)
+        a = torch.randn((8, n), dtype=dt, device=dev, generator=gen)
+        b = torch.randn((8, n), dtype=dt, device=dev, generator=gen)
+        if plain is None:
+            plain = rows_moved(bits(lambda u, v: (u * v).sum(-1)), a, b, 4)
+        staged[(n, dtype)] = [rows_moved(bits(_row_dot), a, b, g)
+                              for g in (4, 2, 1)]
+        del a, b
+    log(f"  row dot, 8 rows at G 8 against G 4, 2, 1: plain sum(-1) at n "
+        f"262,144 fp64 changes {plain} of 8 rows' bits at G 4; the staged "
+        "_row_dot changes "
+        + ", ".join(f"{m} at n {n:,} {d}" for (n, d), m in staged.items()))
+    if any(any(m) for m in staged.values()):
+        raise AssertionError("the batched row dot depends on the lane count")
+    return plain
+
+
+def phase_sharded(bag, dev, main, unsharded_ms):
+    """Lane sharding on the card: ``jpcg_solve_batched(mesh=)`` on the
+    mixed_v3 SELL bag over ``lane_mesh()`` (D = 1 here) and over
+    ``(cuda:0, cuda:0)`` (D = 2), each bit for bit phase 2's unsharded
+    solve (x, rr, iterations, statuses); each loop timed and profiled on
+    operands packed once on the host; then a D = 2 ``SolverEngine`` on the
+    Poisson lanes through ELLPACK against the unsharded engine."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batch import (_pad_stack, jpcg_solve_batched,
+                                        stack_operands)
+    from repro_torch.core.compile import canonical_program
+    from repro_torch.core.precision import get_scheme
+    from repro_torch.core.shard import lane_mesh, place_lanes
+    from repro_torch.core.vm import make_vm_runner
+    from repro_torch.serve import SolverEngine, SolverEngineConfig
+
+    plain_rows = _row_dot_lane_invariance(dev)
+    meshes = {"D=1": lane_mesh(), "D=2": (dev, dev)}
+    tol = solve_tol("mixed_v3", bag)
+    out = {"row_dot_plain_rows_moved": plain_rows}
+    for label, mesh in meshes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = jpcg_solve_batched(bag, tol=tol, scheme="mixed_v3",
+                                 backend="xla", mesh=mesh)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        for g, (r, m) in enumerate(zip(res, main)):
+            if not (r.iterations == m.iterations and r.status == m.status
+                    and np.float64(r.rr).tobytes() ==
+                    np.float64(m.rr).tobytes()
+                    and _bits(r.x.to(dev), m.x)):
+                raise AssertionError(
+                    f"sharded {label} lane {g}: {r.iterations} "
+                    f"iterations, {r.status}, against unsharded "
+                    f"{m.iterations}, {m.status}")
+        out[label] = dict(call_s=call_s, devices=[str(d) for d in mesh])
+        log(f"  mixed_v3/sell {label} on {[str(d) for d in mesh]}: "
+            f"jpcg_solve_batched {call_s:.3f} s; iterations "
+            f"{[r.iterations for r in res]}; x, rr, iterations and statuses "
+            f"≡ phase 2's unsharded solve bit for bit")
+        del res
+
+    # the loop alone: the bag packed once on the host, cut per mesh
+    sch = get_scheme("mixed_v3")
+    t0 = time.perf_counter()
+    mat, stacked, groups, n_ct, _ = stack_operands(
+        bag, backend="xla", layout="sell", scheme=sch, device="cpu")
+    n_pad, vd, G = stacked.padded_rows, sch.vector_dtype, len(bag)
+    args = (mat, _pad_stack([a.diagonal() for a in bag], n_pad, 1.0, vd,
+                            "cpu"),
+            _pad_stack([np.ones(a.shape[0]) for a in bag], n_pad, 0.0, vd,
+                       "cpu"),
+            torch.zeros((G, n_pad), dtype=vd),
+            torch.full((G,), float(tol), dtype=vd))
+    log(f"    packed on the host once in {time.perf_counter() - t0:.3f} s")
+    kw = dict(backend="xla", scheme=sch, maxiter=20_000, with_trace=False,
+              layout="sell", groups=groups, col_tile=512, n_col_tiles=n_ct)
+    prog = canonical_program("paper")
+    window = dict(kw, maxiter=PROFILE_TICKS)
+    loops = {"unsharded": (None, tuple(place_lanes((dev,), a)[0]
+                                       for a in args))}
+    for label, mesh in meshes.items():
+        loops[label] = (mesh, tuple(place_lanes(mesh, a) for a in args))
+    # in turns, each twice; a loop's time is its faster run (the first
+    # run of a runner also meets the allocator)
+    times = {label: [] for label in loops}
+    ticks = {}
+    for label in list(loops) + list(loops)[::-1]:
+        mesh, placed = loops[label]
+        st, t = _timed(make_vm_runner(program=prog, mesh=mesh, **kw), placed)
+        times[label].append(t)
+        ticks[label] = int(_shard_states(st)[0].k)
+        del st
+    base = None
+    for label, (mesh, placed) in loops.items():
+        row = _loop_profile(
+            make_vm_runner(program=prog, mesh=mesh, **window), placed,
+            min(times[label]), ticks[label], label)
+        row["runs_s"] = times[label]
+        base = base or row["ms_per_tick"]
+        row["vs_unsharded"] = row["ms_per_tick"] / base
+        log(f"    {label}: {row['vs_unsharded']:.3f}× the unsharded loop "
+            f"on the same operands (phase 2's: {unsharded_ms:.3f} "
+            "ms/tick)")
+        out.setdefault(label, {}).update(row)
+    del loops, mat, args
+
+    # a D = 2 engine on the Poisson lanes through ELLPACK
+    def engine(where):
+        eng = SolverEngine(SolverEngineConfig(
+            batch_slots=4, chunk_iters=64, backend="pallas", **where))
+        t0 = time.perf_counter()
+        rids = [eng.submit(a) for a in bag[:4]]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        return ([eng.results[r] for r in rids], eng.metrics(),
+                time.perf_counter() - t1, t1 - t0)
+
+    ref, m_ref, t_ref, a_ref = engine(dict(device=str(dev)))
+    got, m_got, t_got, a_got = engine(dict(mesh=(dev, dev)))
+    for g, (r, o) in enumerate(zip(got, ref)):
+        if not (r.iterations == o.iterations and r.status == o.status
+                and _bits(r.x, o.x) and r.status == "CONVERGED"):
+            raise AssertionError(f"D=2 engine lane {g}: {r.iterations} "
+                                 f"{r.status} against {o.iterations} "
+                                 f"{o.status}")
+    if (m_got["exit_status"] != m_ref["exit_status"]
+            or [p["shards"] for p in m_got["pools"].values()] != [2]):
+        raise AssertionError(f"D=2 engine metrics {m_got['exit_status']} "
+                             f"against {m_ref['exit_status']}")
+    out["engine"] = dict(unsharded_s=t_ref, sharded_s=t_got,
+                         unsharded_admit_s=a_ref, sharded_admit_s=a_got,
+                         iterations=[r.iterations for r in got])
+    log(f"  SolverEngine ELLPACK, 4 Poisson lanes: D=2 on one card run "
+        f"{t_got:.3f} s (admit {a_got:.3f} s) against unsharded {t_ref:.3f} "
+        f"s (admit {a_ref:.3f} s); iterations "
+        f"{[r.iterations for r in got]}, results and exit histogram ≡ the "
+        "unsharded engine's bit for bit")
+    return out
+
+
+# ------------------------------------------------------------- phase 6c
+def phase_distributed(a, dev, single, single_loops):
+    """The row-distributed JPCG on a world-size-1 NCCL group (one shard:
+    the whole matrix, no neighbour, so no halo): ``vsr`` and
+    ``pipelined`` at mixed_v3, ``comm="allgather"``, against phase 6's
+    ``jpcg_solve`` (xla) of the same method; a second solve repeats every
+    bit; the all-reduces an iteration are counted."""
+    import datetime
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import make_dist_solver
+    from repro_torch.distributed.cg_dist import collectives, reset_collectives
+
+    n = a.shape[0]
+    b, x0, diag = np.ones(n), np.zeros(n), a.diagonal()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=300))
+        try:
+            for method, it_tol in (("vsr", 1), ("pipelined", 2)):
+                ref = single[(method, "xla", "mixed_v3")]
+                solver = make_dist_solver(a, method=method, scheme="mixed_v3",
+                                          tol=SOLVE_TOL, maxiter=20_000,
+                                          comm="allgather", device=dev)
+                part = solver.part
+                reset_collectives()
+                (x, its, rr), call_s = _single(
+                    lambda: solver.solve(b, x0, diag))
+                counts = collectives()
+                res = residual(a, x)
+                x_ref = ref.x
+                dx = float((x - x_ref).abs().max())
+                scale = float(x_ref.abs().max())
+                per_it = (2, 1) if method == "vsr" else (1, 1)
+                want_ar = per_it[0] * its + per_it[1]
+                if not (rr <= SOLVE_TOL and res <= RESIDUAL_MAX
+                        and abs(its - ref.iterations) <= it_tol
+                        and counts["all_reduce"] == want_ar):
+                    raise AssertionError(
+                        f"distributed {method}: {its} iterations (phase 6 "
+                        f"{ref.iterations}), rr {rr:.3e}, true residual "
+                        f"{res:.3e}, all-reduces {counts['all_reduce']} "
+                        f"(want {want_ar})")
+                if method == "vsr" and dx > 1e-9 * scale:
+                    raise AssertionError(f"distributed vsr: max |Δx| {dx:.3e}"
+                                         f" > 1e-9 × max |x| {scale:.3e}")
+                if method == "pipelined":
+                    np.testing.assert_allclose(
+                        x.cpu().numpy(), x_ref.cpu().numpy(), rtol=1e-4,
+                        atol=1e-6, err_msg="distributed pipelined")
+                (x2, its2, rr2), again_s = _single(
+                    lambda: solver.solve(b, x0, diag))
+                if not (its2 == its and rr2 == rr and _bits(x2, x)):
+                    raise AssertionError(f"distributed {method}: a second "
+                                         f"solve took {its2} iterations, "
+                                         f"x equal {_bits(x2, x)}")
+                window = make_dist_solver(
+                    a, method=method, scheme="mixed_v3", tol=SOLVE_TOL,
+                    maxiter=PROFILE_TICKS, comm="allgather", part=part,
+                    device=dev)
+                _, wall, ev = device_profile(lambda: window.solve(b, x0,
+                                                                  diag))
+                # the window's device time, per iteration, over the solve
+                busy_ms = sum(t for _, t, _ in ev) * its / PROFILE_TICKS
+                row = dict(iterations=its, ref_iterations=ref.iterations,
+                           rr=rr, residual=res, max_dx=dx, max_x=scale,
+                           call_s=call_s, again_s=again_s,
+                           ms_per_iteration=again_s / its * 1e3,
+                           ref_ms_per_iteration=single_loops[
+                               (method, "xla", "mixed_v3")]
+                           / ref.iterations * 1e3,
+                           busy_share=busy_ms / 1e3 / again_s,
+                           all_reduce_per_iteration=(counts["all_reduce"]
+                                                     - per_it[1]) / its,
+                           collectives=counts)
+                out[method] = row
+                log(f"  {method}: world size 1 (one shard of "
+                    f"{part.rows_per_shard} rows: no neighbour, no halo; "
+                    f"halo_width {part.halo_width}), comm {solver.comm}: "
+                    f"{its} iterations (phase 6 {ref.iterations}), rr "
+                    f"{rr:.3e}, true residual {res:.2e}, max |Δx| {dx:.2e} "
+                    f"of max |x| {scale:.3e}; {call_s:.3f} s, again "
+                    f"{again_s:.3f} s = {row['ms_per_iteration']:.3f} "
+                    f"ms/iteration (phase 6's jpcg_solve xla loop "
+                    f"{row['ref_ms_per_iteration']:.3f}), repeat ≡ bit for "
+                    f"bit; {row['all_reduce_per_iteration']:.0f} all-reduce"
+                    f"(s)/iteration, collectives {counts}; device busy "
+                    f"{busy_ms / its:.3f} ms/iteration over its first "
+                    f"{PROFILE_TICKS} = {row['busy_share']:.1%} "
+                    f"({wall:.3f} s profiled)")
+        finally:
+            dist.destroy_process_group()
+    return out
 
 
 # -------------------------------------------------------------- phase 7
@@ -1757,42 +2100,61 @@ def main() -> int:
              "engine": ("spmv_sell", "spmv_ellpack"),
              "single": ("spmv_ell", "dot", "phase2", "phase3",
                         "spmv_ell[tpu_v3]"),
+             "sharded": ("spmv_sell", "spmv_ellpack"),
              "lm": ("flash_attention",)}
     launches = {}
-    log("[phase 1] kernels against their plain versions")
+    log_phase("[phase 1] kernels against their plain versions")
     timed = phase_kernels(bag, dev)
-    log("[phase 2] batched solve (faithful schemes, generic VM, the tier)")
+    log_phase("[phase 2] batched solve (faithful schemes, generic VM, the "
+              "tier)")
     ops.reset_launches()
-    phase_solve(bag, dev)
+    solve_rows, _, main_results = phase_solve(bag, dev)
     launches["solve"] = ops.launches()
     log(f"  launches {launches['solve']}")
-    log("[phase 3] SolverEngine, and one generic engine under two policies")
+    log_phase("[phase 3] SolverEngine, and one generic engine under two "
+              "policies")
     ops.reset_launches()
     phase_engine(bag, dev)
     phase_engine_generic(bag, dev)
     launches["engine"] = ops.launches()
     log(f"  launches {launches['engine']}")
-    log("[phase 4] card against CPU")
+    log_phase("[phase 4] card against CPU")
     phase_cross_device(dev)
 
     t0 = time.perf_counter()
     single = poisson_2d(SINGLE_NX)
     log(f"[data] poisson_2d({SINGLE_NX}): n={single.shape[0]} "
         f"nnz={single.nnz} in {time.perf_counter() - t0:.1f} s")
-    log("[phase 5] single-system kernels against their plain versions")
+    log_phase("[phase 5] single-system kernels against their plain "
+              "versions")
     timed.update(phase_single_kernels(single, dev))
-    log("[phase 6] single-system solve")
-    launches["single"] = phase_single_solve(single, dev)
+    log_phase("[phase 6] single-system solve")
+    launches["single"], single_res, single_loops = phase_single_solve(single,
+                                                                      dev)
     log(f"  launches {launches['single']}")
-    log(f"[phase 7] flash_attention against its plain version ({ARCH} "
-        "shapes)")
+    log_phase("[phase 6b] lane-sharded batched solve (D = 1 and D = 2 on "
+              "one card)")
+    ops.reset_launches()
+    sharded = phase_sharded(bag, dev, main_results,
+                            solve_rows[0]["ms_per_tick"])
+    launches["sharded"] = ops.launches()
+    log(f"  launches {launches['sharded']}")
+    del main_results
+    log_phase("[phase 6c] row-distributed CG (NCCL, world size 1)")
+    ops.reset_launches()
+    distributed = phase_distributed(single, dev, single_res, single_loops)
+    launches["distributed"] = ops.launches()
+    log(f"  launches {launches['distributed']}")
+    del single_res
+    log_phase(f"[phase 7] flash_attention against its plain version ({ARCH} "
+              "shapes)")
     timed["flash_attention"], flash_timed = phase_flash(dev)
-    log(f"[phase 8] {ARCH} at full width: forward, kernel composition")
+    log_phase(f"[phase 8] {ARCH} at full width: forward, kernel composition")
     ops.reset_launches()
     params, lm = phase_lm_forward(dev)
     launches["lm"] = ops.launches()
     log(f"  launches {launches['lm']}")
-    log(f"[phase 9] DecodeEngine on {ARCH} at full width")
+    log_phase(f"[phase 9] DecodeEngine on {ARCH} at full width")
     lm["engine"] = phase_engine_lm(params, dev)
     del params
     for path, names in paths.items():
@@ -1833,6 +2195,8 @@ def main() -> int:
                                  "bound_ms_fp64", "library_dtype", "shape")
                if k in t}})
     lm["flash_attention"] = flash_timed
+    print(json.dumps({"sharded": sharded, "distributed": distributed}),
+          flush=True)
     print(json.dumps({"lm": lm}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

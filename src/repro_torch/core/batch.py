@@ -42,6 +42,8 @@ from repro_torch.core.metrics import (advance_status, finalize_status,
 from repro_torch.core.phases import vsr_iteration
 from repro_torch.core.precision import (PrecisionScheme, get_scheme,
                                         host_values, values_tensor)
+from repro_torch.core.shard import (Shards, lane_mesh, mesh_shards,
+                                    pad_lanes, place_lanes, shard_any)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.spmv import sell_table, spmv_ellpack, spmv_sell
 from repro_torch.sparse.csr import CSRMatrix, csr_from_coo
@@ -70,10 +72,45 @@ class BatchedCGState(NamedTuple):
     trace: torch.Tensor    # [G, maxiter] rr per iteration, or [G, 0]
 
 
+#: Stage widths of :func:`_row_dot`: a long row's first stage sums
+#: sub-rows of ``_DOT_WIDE``; every other stage sums ``_DOT_NARROW``.
+_DOT_WIDE, _DOT_NARROW = 8192, 32
+
+
 def _row_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Row-wise dot — the one dot of the batch runner, the VM and the
-    serving warm-up."""
-    return (a * b).sum(-1)
+    """Row-wise dot of ``[G, n]`` tensors — the one dot of the batch
+    runner, the VM and the serving warm-up — whose bits for a row do not
+    depend on G.
+
+    CUDA's ``sum`` over the last dim picks its threads a row, and for
+    long rows a split of each row over blocks, from the row length and
+    the number of rows, so ``(a*b).sum(-1)`` gives a row other bits
+    beside other lanes (a lane shard, a compacted pool).  Here every
+    stage sums rows of a width fixed by n alone, each short enough that
+    no block shape splits it over blocks:
+
+    * a row of n ≥ 16·8,192 first sums sub-rows of 8,192 (≥ 16 of them a
+      lane, so the block shape is the same for any G);
+    * then rows of 32 (one warp a row, one value a thread: no G changes
+      that), zero-padded, until ≤ 32 partials a lane are left;
+    * then those partials (≤ 32 wide: one thread a partial or two).
+
+    The card check is ``chip_smoke.py``'s phase 6b, at n up to 8.4 M and
+    G ∈ {1, 2, 4, 8}."""
+    G, n = a.shape
+    w = _DOT_WIDE if n >= 16 * _DOT_WIDE else _DOT_NARROW
+    if n > _DOT_NARROW and n % w:
+        p = a.new_zeros((G, n + -n % w), dtype=torch.result_type(a, b))
+        torch.mul(a, b, out=p[:, :n])
+    else:
+        p = a * b
+    while p.shape[1] > _DOT_NARROW:
+        m = p.shape[1]
+        if m % w:
+            p = torch.nn.functional.pad(p, (0, -m % w))
+        p = p.reshape(-1, w).sum(-1).reshape(G, -1)
+        w = _DOT_NARROW
+    return p.sum(-1)
 
 
 # ------------------------------------------------------------ numerics
@@ -269,15 +306,51 @@ def _batched_body(matvec, diag, tol, maxiter_vec=None, *, bound=None,
     return body
 
 
-def _run_chunked(cond, tick, st, *, steps: int):
-    """Drive ``tick`` until ``cond`` fails, reading ``cond`` on the host
-    once per ``steps`` ticks.  Ticks self-gate, so trailing ticks of the
-    last chunk are no-ops and results equal ``steps=1`` bit for bit."""
+def _run_chunked(conds, ticks, states, *, steps: int):
+    """Drive each lane shard's tick until no shard's ``cond`` holds (one
+    shard when unsharded), reading the predicate on the host once per
+    ``steps`` ticks: ``any`` over every shard, gathered on the first
+    shard's device.  Ticks self-gate, so trailing ticks of the last chunk
+    are no-ops and results equal ``steps=1`` bit for bit.
+
+    A shard's tick gates on its own lanes, so a shard whose lanes are all
+    done stops advancing ``k``; after each chunk every shard's ``k`` is set
+    to the largest, the count the unsharded loop reaches (lanes never
+    restart within a call, so a shard with a live lane has taken every
+    tick the loop took).  ``k``, and the trace column it indexes, stay
+    the unsharded ones."""
     steps = max(1, int(steps))
-    while bool(cond(st)):
+    states = list(states)
+    while shard_any(c(s) for c, s in zip(conds, states)):
         for _ in range(steps):
-            st = tick(st)
-    return st
+            states = [tick(s) for tick, s in zip(ticks, states)]
+        if len(states) > 1:
+            home = states[0].k.device
+            k = torch.stack([s.k.to(home) for s in states]).amax()
+            for s in states:
+                s.k.copy_(k)
+    return states
+
+
+def _shard_args(mesh, args):
+    """Per-shard argument tuples: ``args`` themselves when unsharded, else
+    the shards of each (:func:`repro_torch.core.shard.place_lanes`'s
+    :class:`~repro_torch.core.shard.Shards`; sharded runners and steppers
+    never place, so they keep no device)."""
+    if mesh is None:
+        return [tuple(args)]
+    d = mesh_shards(mesh)
+    for a in args:
+        if not (isinstance(a, Shards) and len(a) == d):
+            raise TypeError(f"a runner over {d} lane shards takes operands "
+                            "laid out by core.shard.place_lanes / "
+                            f"place_vm_state, got {type(a).__name__}")
+    return list(zip(*args))
+
+
+def _unshard(mesh, states):
+    """The runner's result: one state unsharded, else a ``Shards``."""
+    return states[0] if mesh is None else Shards(states)
 
 
 # ------------------------------------------------------------------ cache
@@ -307,25 +380,33 @@ def _cached(key, make):
 
 def _make_runner(*, backend, scheme, maxiter, with_trace, layout=None,
                  groups=None, col_tile=None, n_col_tiles=None,
-                 steps_per_sync=8, detect=True):
+                 steps_per_sync=8, detect=True, mesh=None):
     """The phases engine's solve-to-completion runner for one bucket:
     ``run(mat, diag, b, x0, tol) -> BatchedCGState``; leftover ``RUNNING``
-    statuses finalize to ``MAXITER``."""
+    statuses finalize to ``MAXITER``.  With a ``mesh`` every argument is
+    the :class:`~repro_torch.core.shard.Shards` that
+    :func:`~repro_torch.core.shard.place_lanes` lays out, and so is the
+    result (one state per lane shard)."""
     matvec_of = _matvec_factory(backend=backend, scheme=scheme,
                                 layout=layout, groups=groups,
                                 col_tile=col_tile, n_col_tiles=n_col_tiles)
 
+    def cond(s):
+        return (s.k < maxiter) & s.active.any()
+
     def run(mat, diag, b, x0, tol):
-        matvec = matvec_of(mat)
-        st = _batched_init(matvec, diag, b, x0, maxiter=maxiter,
-                           with_trace=with_trace, tol=tol, detect=detect)
-        tick = _batched_body(matvec, diag, tol, bound=maxiter, detect=detect)
-
-        def cond(s):
-            return (s.k < maxiter) & s.active.any()
-
-        out = _run_chunked(cond, tick, st, steps=steps_per_sync)
-        return out._replace(status=finalize_status(out.status))
+        states, ticks = [], []
+        for m, d, b_s, x_s, t in _shard_args(mesh, (mat, diag, b, x0, tol)):
+            matvec = matvec_of(m)
+            states.append(_batched_init(matvec, d, b_s, x_s, maxiter=maxiter,
+                                        with_trace=with_trace, tol=t,
+                                        detect=detect))
+            ticks.append(_batched_body(matvec, d, t, bound=maxiter,
+                                       detect=detect))
+        out = _run_chunked([cond] * len(states), ticks, states,
+                           steps=steps_per_sync)
+        return _unshard(mesh, [o._replace(status=finalize_status(o.status))
+                               for o in out])
 
     return run
 
@@ -414,17 +495,28 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
 
     Same knobs and results as :func:`repro.core.batch.jpcg_solve_batched`
     (``engine``, ``policy``/``program``, ``specialize``, ``layout``,
-    ``steps_per_sync``, ``detect``, ``with_status``, ``with_trace``);
-    ``x`` in each result is a tensor on ``device``.  ``specialize=False``
-    runs the program as an operand of one runner cached per bucket
-    (:func:`repro_torch.core.vm.make_vm_runner` with ``program=None``),
-    bitwise equal to the specialized runner.  Not ported yet: ``mesh=``
-    (lane sharding) and ``interpret=`` (there is no interpreter: CPU
-    tensors take the plain versions).
+    ``steps_per_sync``, ``detect``, ``with_status``, ``with_trace``,
+    ``mesh``); ``x`` in each result is a tensor on its lane's device.
+    ``specialize=False`` runs the program as an operand of one runner
+    cached per bucket (:func:`repro_torch.core.vm.make_vm_runner` with
+    ``program=None``), bitwise equal to the specialized runner.
+
+    ``mesh`` (a tuple of devices, :func:`repro_torch.core.shard.lane_mesh`;
+    it takes the place of ``device``) splits the lanes over D shards, shard
+    d's on ``mesh[d]``: the bag is packed once on the host, padded to a
+    multiple of D with inert identity lanes (converged at admission,
+    dropped from the results and the metrics), and its stacked operands
+    are cut along the lane axis.  The sharded solve is bit for bit the
+    unsharded one — x, rr, iterations, statuses and trace — for every
+    engine, layout and scheme; the mesh signature joins the runner's
+    cache key (see :mod:`repro_torch.core.shard`).  ``interpret=`` has no
+    counterpart: a CPU tensor takes each kernel's plain version, a CUDA
+    tensor its kernel.
     """
-    if mesh is not None or interpret is not None:
+    if interpret is not None:
         raise NotImplementedError(
-            "mesh= and interpret= are not part of the torch port")
+            "interpret= has no counterpart in the torch port: a CPU tensor "
+            "takes each kernel's plain version, a CUDA tensor its kernel")
     if engine != "vm" and (policy is not None or program is not None):
         raise ValueError(
             f"policy=/program= select the stream-VM's program; they have "
@@ -435,15 +527,27 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
                          "program= (pre-assembled), not both")
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
-    device = resolve_device(device)
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass either device= or mesh= (the mesh names "
+                             "the devices), not both")
+        mesh = lane_mesh(mesh)
+        device = torch.device("cpu")      # pack on the host, then cut
+    else:
+        device = resolve_device(device)
     scheme = get_scheme(scheme)
     csrs = [_as_csr(a) for a in problems]
-    G = len(csrs)
+    G = G_real = len(csrs)
     if G == 0:
         return []
     if layout in (None, "auto"):
         layout = choose_layout(
             csrs, default="rowell" if backend == "xla" else "ellpack")
+    if mesh is not None:
+        # Shard padding after the layout choice, which sees only the real
+        # problems; a 1×1 identity lane changes no bucket dimension.
+        G = pad_lanes(G_real, mesh)
+        csrs = csrs + [_as_csr(np.eye(1))] * (G - G_real)
     mat, stacked, groups, n_col_tiles, bucket_dims = stack_operands(
         csrs, backend=backend, layout=layout, scheme=scheme, device=device,
         bucket=bucket, block_rows=block_rows, col_tile=col_tile)
@@ -455,36 +559,45 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
     # Padded rows get a unit diagonal and zero rhs: their residual is
     # identically zero, so they never influence rr or termination.
     diag = _pad_stack([a.diagonal() for a in csrs], n_pad, 1.0, vd, device)
-    bs = list(bs) if bs is not None else [np.ones(n) for n in ns]
-    x0s = list(x0s) if x0s is not None else [np.zeros(n) for n in ns]
+    bs = list(bs) if bs is not None else [np.ones(n) for n in ns[:G_real]]
+    x0s = (list(x0s) if x0s is not None
+           else [np.zeros(n) for n in ns[:G_real]])
     for name, seq in (("bs", bs), ("x0s", x0s)):
-        if len(seq) != G:
-            raise ValueError(f"{name} has {len(seq)} entries for {G} "
+        if len(seq) != G_real:
+            raise ValueError(f"{name} has {len(seq)} entries for {G_real} "
                              "problems")
         for g, v in enumerate(seq):
             if np.shape(v) != (ns[g],):
                 raise ValueError(
                     f"{name}[{g}] has shape {np.shape(v)}, expected "
                     f"({ns[g]},) for problem {g}")
-    b = _pad_stack(bs, n_pad, 0.0, vd, device)
-    x0 = _pad_stack(x0s, n_pad, 0.0, vd, device)
+    # shard-padding lanes: zero rhs and start on the identity lane
+    pad_g = [np.zeros(1)] * (G - G_real)
+    b = _pad_stack(bs + pad_g, n_pad, 0.0, vd, device)
+    x0 = _pad_stack(x0s + pad_g, n_pad, 0.0, vd, device)
     if np.ndim(tol) == 0:
         tol_vec = torch.full((G,), float(tol), dtype=vd, device=device)
     else:
-        if len(tol) != G:
-            raise ValueError(f"tol has {len(tol)} entries for {G} problems")
-        tol_vec = torch.tensor(np.asarray(tol, np.float64), dtype=vd,
-                               device=device)
+        if len(tol) != G_real:
+            raise ValueError(f"tol has {len(tol)} entries for {G_real} "
+                             "problems")
+        tol_vec = torch.tensor(np.concatenate([
+            np.asarray(tol, np.float64), np.ones(G - G_real)]), dtype=vd,
+            device=device)
+    operands = (mat, diag, b, x0, tol_vec)
+    if mesh is not None:
+        operands = tuple(place_lanes(mesh, a) for a in operands)
 
     from repro_torch.core.compile import executable_key
     runner_kw = dict(backend=backend, scheme=scheme, maxiter=maxiter,
                      with_trace=with_trace, layout=layout, groups=groups,
                      col_tile=col_tile, n_col_tiles=n_col_tiles,
-                     steps_per_sync=steps_per_sync, detect=detect)
+                     steps_per_sync=steps_per_sync, detect=detect, mesh=mesh)
     key_kw = dict(backend=backend, scheme=scheme.name, batch=G,
                   bucket=bucket_dims, layout=layout, index_bytes=index_bytes,
                   maxiter=maxiter, with_trace=with_trace,
-                  steps_per_sync=steps_per_sync, donate=False, detect=detect)
+                  steps_per_sync=steps_per_sync, donate=False, detect=detect,
+                  mesh=mesh)
     if engine == "vm":
         from repro_torch.core.compile import canonical_program
         from repro_torch.core.isa import BUF, SREG
@@ -500,32 +613,42 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
             key = executable_key("vm_solve_spec", program=prog_np, **key_kw)
             run = _cached(key, lambda: make_vm_runner(program=prog_np,
                                                       **runner_kw))
-            st = run(mat, diag, b, x0, tol_vec)
+            st = run(*operands)
         else:
             method += "|generic"
             run = _cached(executable_key("vm_solve", **key_kw),
                           lambda: make_vm_runner(**runner_kw))
-            st = run(prog_np, mat, diag, b, x0, tol_vec)
-        xs = st.mem[BUF["x"]]
-        rrs_dev, trace_dev = st.sregs[SREG["rr"]], st.trace
+            st = run(prog_np, *operands)
+
+        def fields(s):
+            return s.mem[BUF["x"]], s.sregs[SREG["rr"]], s.trace
     elif engine == "phases":
         key = executable_key("solve", **key_kw)
         run = _cached(key, lambda: _make_runner(**runner_kw))
-        st = run(mat, diag, b, x0, tol_vec)
-        xs, rrs_dev, trace_dev = st.x, st.rr, st.trace
+        st = run(*operands)
         method = "vsr_batched"
+
+        def fields(s):
+            return s.x, s.rr, s.trace
     else:
         raise ValueError(f"unknown engine {engine!r}")
 
-    its = st.it.cpu().numpy()
-    rrs = rrs_dev.cpu().numpy()
+    shards = list(st) if mesh is not None else [st]
+    per = G // len(shards)
+
+    def lanes(t_of):
+        return np.concatenate([t_of(s).cpu().numpy() for s in shards])
+
+    its = lanes(lambda s: s.it)
+    rrs = lanes(lambda s: fields(s)[1])
     tols = tol_vec.cpu().numpy()
-    statuses = st.status.cpu().numpy()
-    traces = trace_dev.cpu().numpy() if with_trace else None
+    statuses = lanes(lambda s: s.status)
+    traces = lanes(lambda s: fields(s)[2]) if with_trace else None
 
     # Observability (host-side estimates): one SpMV per warm-up, per
     # committed iteration, and per discarded in-loop breakdown tick;
     # streamed bytes = events × the lane's at-rest nonzero stream.
+    # Shard-padding lanes (g ≥ G_real) are invisible to the accounting.
     m = solver_metrics()
     if layout == "ellpack":
         lane_stream_bytes = (_nbytes(mat[1]) + _nbytes(mat[2])) // G
@@ -535,19 +658,20 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
     # in-loop breakdown freezes at its (finite) pre-tick rr, while a lane
     # latched non-finite at admission keeps its non-finite warm-up rr.
     n_bd = int(sum(is_breakdown(int(c)) and np.isfinite(rrs[g])
-                   for g, c in enumerate(statuses)))
-    spmv_events = G + int(its.sum()) + n_bd
+                   for g, c in enumerate(statuses[:G_real])))
+    spmv_events = G_real + int(its[:G_real].sum()) + n_bd
     m.bump("solves")
-    m.bump("lanes", G)
-    m.bump("iterations", int(its.sum()))
+    m.bump("lanes", G_real)
+    m.bump("iterations", int(its[:G_real].sum()))
     m.bump("spmv_calls", spmv_events)
     m.bump("bytes_streamed_est", spmv_events * int(lane_stream_bytes))
-    m.record_exits(statuses)
+    m.record_exits(statuses[:G_real])
 
     return [CGResult(
-        x=xs[g, : ns[g]], iterations=int(its[g]), rr=float(rrs[g]),
+        x=fields(shards[g // per])[0][g % per, : ns[g]],
+        iterations=int(its[g]), rr=float(rrs[g]),
         converged=bool(rrs[g] <= tols[g]),
         residual_trace=traces[g, : its[g]] if with_trace else None,
         scheme=scheme.name, method=method,
         status=status_name(int(statuses[g])) if with_status else None)
-        for g in range(G)]
+        for g in range(G_real)]

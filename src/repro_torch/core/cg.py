@@ -99,7 +99,8 @@ def _vector(v, n: int, fill: float, dtype, device) -> torch.Tensor:
 def jpcg_solve(a, b=None, x0=None, *, tol: float = 1e-12,
                maxiter: int = 20_000, scheme="mixed_v3", method: str = "vsr",
                backend: str = "xla", diag=None, n: Optional[int] = None,
-               with_trace: bool = False, replace_every: int = 50,
+               with_trace: bool = False,
+               replace_every: int = _pipe.REPLACE_EVERY,
                block_rows: int = 256, col_tile: int = 512,
                device=None) -> CGResult:
     scheme = get_scheme(scheme)

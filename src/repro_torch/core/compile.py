@@ -27,6 +27,7 @@ import numpy as np
 from repro_torch.core.isa import (BUF, ITYPE_COMP, ITYPE_CTRL, ITYPE_VCTRL, MOD,
                             SREG, CTRL_ALPHA, CTRL_BETA, Instr, pad_program,
                             program_token)
+from repro_torch.core.shard import mesh_signature
 from repro_torch.core.vsr import (JPCG_MODULES, LOOP_CARRIED, Module, VSRSchedule,
                             schedule)
 
@@ -357,7 +358,8 @@ def executable_key(kind: str, *, backend: str, scheme: str, bucket,
                    chunk: Optional[int] = None,
                    with_trace: Optional[bool] = None,
                    detect: Optional[bool] = None,
-                   program: Optional[np.ndarray] = None) -> tuple:
+                   program: Optional[np.ndarray] = None,
+                   mesh=None) -> tuple:
     """Canonical cache key for VM/phases runners and steppers.
 
     One function builds every key so the fields that split runners are
@@ -366,14 +368,16 @@ def executable_key(kind: str, *, backend: str, scheme: str, bucket,
     ``(n_pad, W)``, sliced-ELL ``(n_pad, rows0, w0, rows1, w1, ...)``,
     ELLPACK ``(B, T, E, n_tiles)``), ``layout``, ``index_bytes``,
     ``batch``/``maxiter``/``with_trace`` (solve runners), ``chunk``
-    (steppers), ``steps_per_sync``, ``donate``, ``detect`` and — for
-    specialized runners only — the program's
+    (steppers), ``steps_per_sync``, ``donate``, ``detect``, ``mesh`` (a
+    lane mesh or its :func:`~repro_torch.core.shard.mesh_signature`: a
+    sharded runner never shares a key with the unsharded one or with
+    another mesh size) and — for specialized runners only — the program's
     :func:`~repro_torch.core.isa.program_token`.
     """
     key = (kind, backend, scheme, batch, tuple(np.ravel(bucket).tolist()),
            layout, index_bytes, maxiter, chunk, with_trace,
            int(steps_per_sync), bool(donate),
-           None if detect is None else bool(detect))
+           None if detect is None else bool(detect), mesh_signature(mesh))
     if program is not None:
         key += (program_token(np.asarray(program, np.int32)),)
     return key

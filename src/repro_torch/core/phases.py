@@ -19,6 +19,11 @@ given ``phase_ops`` (:func:`repro_torch.kernels.ops.make_phase_ops`), one
 dot kernel and one fused kernel per phase.  The reference's
 ``lax.while_loop`` becomes a host loop that reads ``rr`` once per
 iteration; every other scalar stays a 0-d device tensor.
+
+Given ``reduce``, every dot is a local partial that ``reduce`` sums over
+the ranks sharing the vectors, two barriers an iteration (``p·ap``, then
+the packed ``[r·r, r·z]``): the row-distributed solver
+(:mod:`repro_torch.distributed.cg_dist`) runs this loop so.
 """
 from __future__ import annotations
 
@@ -45,17 +50,25 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a, b)
 
 
-def vsr_iteration(matvec, diag, x, r, p, rz, *, dot=_dot, with_aux=False):
+def local(*scalars):
+    """The ``reduce`` of one system: its dots are already whole."""
+    return scalars
+
+
+def vsr_iteration(matvec, diag, x, r, p, rz, *, dot=_dot, reduce=local,
+                  with_aux=False):
     """One VSR-scheduled JPCG iteration (phases 1–3) on raw vectors.
 
     With a row-wise ``dot`` the vectors carry a leading lane axis and the
-    scalars are ``[G]``.  Returns ``(x', r', p', rz', rr')``; with
-    ``with_aux`` the tick's ``(pap, alpha, beta)`` ride along as a sixth
-    element for breakdown detection (:mod:`repro_torch.core.metrics`).
+    scalars are ``[G]``.  ``reduce(*partials) -> sums`` completes the
+    dots, once for ``p·ap`` and once for ``r'·r'`` and ``r'·z``.  Returns
+    ``(x', r', p', rz', rr')``; with ``with_aux`` the tick's ``(pap,
+    alpha, beta)`` ride along as a sixth element for breakdown detection
+    (:mod:`repro_torch.core.metrics`).
     """
     # ---- Phase 1: M1 (SpMV), M2 (dot) -> alpha ----
     ap = matvec(p)
-    pap = dot(p, ap)
+    pap, = reduce(dot(p, ap))
     alpha = rz / pap
     al = alpha[..., None] if alpha.dim() else alpha
     # ---- Phase 2: M4, M8, M5, M6 -> beta ----
@@ -63,6 +76,7 @@ def vsr_iteration(matvec, diag, x, r, p, rz, *, dot=_dot, with_aux=False):
     rr_new = dot(r_new, r_new)           # M8 hoisted: early termination
     z = r_new / diag                     # M5 (never stored)
     rz_new = dot(r_new, z)               # M6
+    rr_new, rz_new = reduce(rr_new, rz_new)
     beta = rz_new / rz
     be = beta[..., None] if beta.dim() else beta
     # ---- Phase 3: M7, M3 ----
@@ -74,18 +88,18 @@ def vsr_iteration(matvec, diag, x, r, p, rz, *, dot=_dot, with_aux=False):
 
 
 def init_state(matvec, diag, b, x0, *, maxiter: int,
-               scheme: PrecisionScheme, with_trace: bool) -> CGState:
+               scheme: PrecisionScheme, with_trace: bool,
+               reduce=local) -> CGState:
     """Paper Alg. 1 lines 1–5 (the controller's rp = −1 warm-up pass).
     The dots here are plain ``torch.dot``, as the reference's are
-    ``jnp.dot``."""
+    ``jnp.dot``, completed by one ``reduce``."""
     vd = scheme.vector_dtype
     b = b.to(vd)
     x0 = x0.to(vd)
     r = b - matvec(x0)
     z = r / diag
     p = z
-    rz = _dot(r, z)
-    rr = _dot(r, r)
+    rz, rr = reduce(_dot(r, z), _dot(r, r))
     trace = torch.zeros(maxiter if with_trace else 0, dtype=vd,
                         device=b.device)
     return CGState(i=torch.zeros((), dtype=torch.int32, device=b.device),
@@ -93,7 +107,8 @@ def init_state(matvec, diag, b, x0, *, maxiter: int,
 
 
 def jpcg_loop(matvec, diag, state: CGState, *, tol: float, maxiter: int,
-              scheme: PrecisionScheme, phase_ops=None) -> CGState:
+              scheme: PrecisionScheme, phase_ops=None,
+              reduce=local) -> CGState:
     """Run Alg. 1's main loop until ``rr <= tol`` or ``i == maxiter``.
 
     The predicate is the reference's ``(i < maxiter) & (rr > tol)`` with
@@ -104,14 +119,17 @@ def jpcg_loop(matvec, diag, state: CGState, *, tol: float, maxiter: int,
     :func:`repro_torch.kernels.ops.make_phase_ops`): when given, phase 1
     is the operator's SpMV plus the dot kernel and phases 2 and 3 are one
     fused kernel each, instead of :func:`vsr_iteration`'s eager ops (the
-    plain oracle, the reference's ``body_jnp``).  The input state is not
-    modified.
+    plain oracle, the reference's ``body_jnp``).  ``reduce`` completes
+    the plain body's dots (the kernels' dots are whole).  The input state
+    is not modified.
     """
+    if phase_ops is not None and reduce is not local:
+        raise ValueError("phase_ops computes whole dots: no reduce")
     vd = scheme.vector_dtype
     tol_v = float(torch.tensor(tol, dtype=vd))
 
     def body_plain(x, r, p, rz):
-        return vsr_iteration(matvec, diag, x, r, p, rz)
+        return vsr_iteration(matvec, diag, x, r, p, rz, reduce=reduce)
 
     def body_kernels(x, r, p, rz):
         dot, phase2, phase3 = phase_ops

@@ -8,8 +8,13 @@ is a latency-bound all-reduce.  Cost per iteration: 20 vector accesses
 (11R + 9W) and one reduction, against the VSR loop's 13–14 and two.
 
 Pipelined CG's recurrences lose accuracy faster than true-residual CG;
-every ``replace_every`` iterations the residual is replaced (r = b − A·x
-and the dependent u, w recomputed), as in the reference.
+every ``replace_every`` iterations (:data:`REPLACE_EVERY` by default) the
+residual is replaced (r = b − A·x and the dependent u, w recomputed), as
+in the reference.
+
+Given ``reduce``, the three dots are local partials that one ``reduce``
+sums over the ranks sharing the vectors: the row-distributed solver
+(:mod:`repro_torch.distributed.cg_dist`) runs this loop so.
 
 Plain PyTorch throughout, like the reference's jnp: the reduction is the
 plain :func:`_dots3`, not the ``dot3`` kernel (the reference's loop does
@@ -22,9 +27,13 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.phases import local
 from repro_torch.core.precision import PrecisionScheme
 
-__all__ = ["PipeCGState", "pipecg_init", "pipecg_loop"]
+__all__ = ["PipeCGState", "pipecg_init", "pipecg_loop", "REPLACE_EVERY"]
+
+#: Iterations between residual replacements (the reference's default).
+REPLACE_EVERY = 50
 
 
 class PipeCGState(NamedTuple):
@@ -45,35 +54,37 @@ class PipeCGState(NamedTuple):
     trace: torch.Tensor
 
 
-def _dots3(r, u, w):
+def _dots3(r, u, w, reduce):
     """The single fused reduction: γ, δ, ‖r‖² (three plain dots)."""
-    return torch.stack([torch.dot(r, u), torch.dot(w, u), torch.dot(r, r)])
+    return reduce(torch.dot(r, u), torch.dot(w, u), torch.dot(r, r))
 
 
 def pipecg_init(matvec, diag, b, x0, *, maxiter: int, scheme: PrecisionScheme,
-                with_trace: bool) -> PipeCGState:
+                with_trace: bool, reduce=local) -> PipeCGState:
     vd = scheme.vector_dtype
     b = b.to(vd)
     x = x0.to(vd)
     r = b - matvec(x)
     u = r / diag
     w = matvec(u)
-    gdr = _dots3(r, u, w)
+    gamma, delta, rr = _dots3(r, u, w, reduce)
     zero = torch.zeros_like(r)
     one = torch.ones((), dtype=vd, device=r.device)
     trace = torch.zeros(maxiter if with_trace else 0, dtype=vd,
                         device=r.device)
     return PipeCGState(i=torch.zeros((), dtype=torch.int32, device=r.device),
                        x=x, r=r, u=u, w=w, z=zero, q=zero, s=zero, p=zero,
-                       gamma=gdr[0], gamma_prev=one, delta=gdr[1],
-                       alpha_prev=one, rr=gdr[2], trace=trace)
+                       gamma=gamma, gamma_prev=one, delta=delta,
+                       alpha_prev=one, rr=rr, trace=trace)
 
 
 def pipecg_loop(matvec, diag, b, state: PipeCGState, *, tol: float,
                 maxiter: int, scheme: PrecisionScheme,
-                replace_every: int = 50) -> PipeCGState:
+                replace_every: int = REPLACE_EVERY,
+                reduce=local) -> PipeCGState:
     """Iterate until ``rr <= tol`` (at ``vector_dtype``) or ``i == maxiter``;
-    the input state is not modified."""
+    ``reduce`` completes each iteration's three dots in one call.  The
+    input state is not modified."""
     vd = scheme.vector_dtype
     tol_v = float(torch.tensor(tol, dtype=vd))
     b = b.to(vd)
@@ -105,12 +116,12 @@ def pipecg_loop(matvec, diag, b, state: PipeCGState, *, tol: float,
             r = b - matvec(x)
             u = r / diag
             w = matvec(u)
-        gdr = _dots3(r, u, w)
+        gamma, delta, rr = _dots3(r, u, w, reduce)     # THE reduction
         if st.trace.shape[0]:
-            st.trace[i] = gdr[2]
+            st.trace[i] = rr
         i += 1
         st = PipeCGState(i=st.i, x=x, r=r, u=u, w=w, z=z, q=q, s=s, p=p,
-                         gamma=gdr[0], gamma_prev=st.gamma, delta=gdr[1],
-                         alpha_prev=alpha, rr=gdr[2], trace=st.trace)
+                         gamma=gamma, gamma_prev=st.gamma, delta=delta,
+                         alpha_prev=alpha, rr=rr, trace=st.trace)
     return st._replace(i=torch.tensor(i, dtype=torch.int32,
                                       device=st.x.device))

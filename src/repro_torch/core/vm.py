@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.batch import (_cached, _masked_trace, _matvec_factory,
-                                    _row_dot, _run_chunked)
+                                    _row_dot, _run_chunked, _shard_args,
+                                    _unshard)
 from repro_torch.core.compile import executable_key
 from repro_torch.core.isa import (CTRL_ALPHA, ITYPE_COMP, ITYPE_CTRL,
                                   ITYPE_NOP, ITYPE_VCTRL, SREG)
@@ -366,7 +367,7 @@ def _spec_body(plan: _ProgramPlan, matvec, tol, maxiter_vec=None, *,
 def make_vm_runner(*, backend, scheme, maxiter, with_trace, layout=None,
                    groups=None, col_tile=None, n_col_tiles=None,
                    steps_per_sync: int = 8, detect: bool = True,
-                   program: Optional[np.ndarray] = None):
+                   program: Optional[np.ndarray] = None, mesh=None):
     """Solve-to-completion VM runner for one bucket.
 
     With ``program=None`` (the generic path) it is
@@ -376,24 +377,32 @@ def make_vm_runner(*, backend, scheme, maxiter, with_trace, layout=None,
     ``run(mat, diag, b, x0, tol)`` and the caller keys its cache on the
     program bytes too.  ``steps_per_sync`` ticks run per host read of the
     termination predicate (bit-identical for any value); leftover
-    ``RUNNING`` statuses finalize to ``MAXITER``.
+    ``RUNNING`` statuses finalize to ``MAXITER``.  With a ``mesh``
+    (:mod:`repro_torch.core.shard`) the operands are the
+    :class:`~repro_torch.core.shard.Shards` that ``place_lanes`` lays out
+    and the result is one state per lane shard, bit for bit the unsharded
+    run's lanes.
     """
     scheme = get_scheme(scheme)
     matvec_of = _matvec_factory(backend=backend, scheme=scheme,
                                 layout=layout, groups=groups,
                                 col_tile=col_tile, n_col_tiles=n_col_tiles)
 
+    def cond(s):
+        return (s.k < maxiter) & s.active.any()
+
     def solve(make_tick, mat, diag, b, x0, tol):
-        matvec = matvec_of(mat)
-        st = vm_init(matvec, diag, b, x0, maxiter=maxiter,
-                     with_trace=with_trace, tol=tol, detect=detect)
-        tick = make_tick(matvec, tol)
-
-        def cond(s):
-            return (s.k < maxiter) & s.active.any()
-
-        out = _run_chunked(cond, tick, st, steps=steps_per_sync)
-        return out._replace(status=finalize_status(out.status))
+        states, ticks = [], []
+        for m, d, b_s, x_s, t in _shard_args(mesh, (mat, diag, b, x0, tol)):
+            matvec = matvec_of(m)
+            states.append(vm_init(matvec, d, b_s, x_s, maxiter=maxiter,
+                                  with_trace=with_trace, tol=t,
+                                  detect=detect))
+            ticks.append(make_tick(matvec, t))
+        out = _run_chunked([cond] * len(states), ticks, states,
+                           steps=steps_per_sync)
+        return _unshard(mesh, [o._replace(status=finalize_status(o.status))
+                               for o in out])
 
     if program is None:
         def run_generic(program, mat, diag, b, x0, tol):
@@ -418,7 +427,7 @@ def make_vm_stepper(*, backend, scheme, bucket, chunk, layout=None,
                     groups=None, index_bytes=None, col_tile=None,
                     n_col_tiles=None, steps_per_sync: int = 8,
                     donate: bool = False, detect: bool = True,
-                    program: Optional[np.ndarray] = None):
+                    program: Optional[np.ndarray] = None, mesh=None):
     """Bounded VM stepper for incremental serving (``SolverEngine``): each
     call runs at most ``chunk`` ticks; per-lane budgets come in as
     ``maxiter_vec``.
@@ -432,28 +441,35 @@ def make_vm_stepper(*, backend, scheme, bucket, chunk, layout=None,
       bytes as well.
 
     ``donate=True`` consumes ``state``: it is updated in place and
-    returned.  Otherwise the stepper works on a copy.
+    returned.  Otherwise the stepper works on a copy.  With a ``mesh``
+    ``mat``, ``state``, ``tol`` and ``maxiter_vec`` are
+    :class:`~repro_torch.core.shard.Shards` (``place_lanes``,
+    ``place_vm_state``), and so is the returned state; the mesh signature
+    joins the cache key.
     """
     scheme = get_scheme(scheme)
     inner = max(1, min(int(steps_per_sync), int(chunk)))
     key_kw = dict(backend=backend, scheme=scheme.name, bucket=bucket,
                   layout=layout, index_bytes=index_bytes, chunk=chunk,
-                  steps_per_sync=inner, donate=donate, detect=detect)
+                  steps_per_sync=inner, donate=donate, detect=detect,
+                  mesh=mesh)
     matvec_of = _matvec_factory(backend=backend, scheme=scheme,
                                 layout=layout, groups=groups,
                                 col_tile=col_tile, n_col_tiles=n_col_tiles)
 
     def advance(make_tick, mat, state, tol, maxiter_vec):
-        if not donate:
-            state = clone_state(state)
-        matvec = matvec_of(mat)
-        start = state.k.clone()
-        tick = make_tick(matvec, tol, maxiter_vec, start + chunk)
-
-        def cond(s):
-            return ((s.k - start) < chunk) & s.active.any()
-
-        return _run_chunked(cond, tick, state, steps=inner)
+        states, ticks, conds = [], [], []
+        for m, st, t, mv in _shard_args(mesh, (mat, state, tol,
+                                               maxiter_vec)):
+            if not donate:
+                st = clone_state(st)
+            start = st.k.clone()
+            ticks.append(make_tick(matvec_of(m), t, mv, start + chunk))
+            conds.append(lambda s, start=start:
+                         ((s.k - start) < chunk) & s.active.any())
+            states.append(st)
+        return _unshard(mesh, _run_chunked(conds, ticks, states,
+                                           steps=inner))
 
     if program is None:
         def step_generic(program, mat, state, tol, maxiter_vec):

@@ -172,6 +172,18 @@ class SellTable:
         """Slots one launch over ``lanes`` lanes reads."""
         return self.slots * lanes if self.shared else self.slots
 
+    def lanes(self, start: int, stop: int, device) -> "SellTable":
+        """The table of lanes ``start:stop`` alone, on ``device``: a lane
+        shard's (:mod:`repro_torch.core.shard`), built from those lanes'
+        own widths, so each lane reads the slots it read in the whole
+        bag's table."""
+        device = torch.device(device)
+        if self.shared:
+            return _shared_table(self.groups, device)
+        return sell_table(self.groups, device=device,
+                          lane_widths=self.lane_widths[start:stop].cpu()
+                          .numpy(), slice_rows=self.slice_rows)
+
 
 def _subsets(width: np.ndarray) -> np.ndarray:
     """Threads per row: clamp(next_pow2(w) / SELL_MIN_LEAVES, 1,

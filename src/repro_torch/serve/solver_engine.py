@@ -51,6 +51,7 @@ from repro_torch.core.metrics import (Metrics, STATUS_MAXITER,
                                       status_name)
 from repro_torch.core.precision import (get_scheme, host_values,
                                         values_tensor)
+from repro_torch.core.shard import Shards, lane_mesh, shard_any
 from repro_torch.core.vm import BatchedVMState, make_vm_stepper
 from repro_torch.device import resolve_device
 from repro_torch.kernels.spmv import sell_table
@@ -59,6 +60,7 @@ from repro_torch.sparse.ellpack import csr_to_ellpack
 from repro_torch.sparse.stacking import (SELL_SLICE_ROWS, _sell_groups,
                                          bucket_up, choose_layout,
                                          csr_rowell, index_dtype,
+                                         lane_bucket_up,
                                          pad_ellpack, sell_slice_widths,
                                          stack_sell)
 
@@ -89,6 +91,9 @@ class SolverEngineConfig:
     escalate_fp64: bool = False       # retry a breakdown once at fp64
     escalate_scheme: str = "fp64"     # where escalation re-routes to
     device: Optional[str] = None      # None = "cuda"
+    mesh: Optional[tuple] = None      # lane mesh (repro_torch.core.shard
+    #                                   .lane_mesh) in place of device:
+    #                                   each pool's lanes split over it
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -97,30 +102,71 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 class _Pool:
-    """Slots + VM state for one (scheme, policy) request class."""
+    """Slots + VM state for one (scheme, policy) request class.
+
+    The slots split into ``n_dev`` lane shards of ``slots / n_dev`` each:
+    slot s lives on shard ``s // (slots / n_dev)``, whose operand, VM
+    state, tolerances and budgets sit on ``devices[d]`` (one shard, on the
+    engine's device, without a mesh).  A lane never leaves its shard:
+    growth and compaction are device-local."""
 
     def __init__(self, cfg: SolverEngineConfig, scheme, policy: str,
-                 device: torch.device, metrics: Optional[Metrics] = None):
+                 devices: Tuple[torch.device, ...], mesh=None,
+                 metrics: Optional[Metrics] = None):
         self.cfg = cfg
         self.scheme = scheme
         self.policy = policy
-        self.device = device
+        self.devices = devices
+        self.mesh = mesh
+        self.n_dev = len(devices)
         self.metrics = metrics if metrics is not None else Metrics()
         self.program_np = np.asarray(canonical_program(policy), np.int32)
-        self.capacity = cfg.batch_slots
+        self.capacity = (cfg.batch_slots if mesh is None else
+                         lane_bucket_up(cfg.batch_slots, parts=self.n_dev))
         self.slots = self.capacity               # current lane capacity
         self.req_of_slot: list = [None] * self.slots   # request id or None
         self.n_of_slot = np.zeros(self.slots, np.int64)  # logical n per slot
         self.csr_of_slot: list = [None] * self.slots  # kept for sell rebuild
         self.bucket = None                       # per-layout dims tuple
-        self.mat = None                          # slot-stacked tensors
-        self.state: Optional[BatchedVMState] = None
-        self.tol = None
-        self.maxiter_vec = None
+        self.mats: list = []                     # per shard: its operand
+        self.states: list = []                   # per shard: BatchedVMState
+        self.tols: list = []                     # per shard: tol[lanes]
+        self.maxiters: list = []                 # per shard: budgets
         self.layout = None if cfg.layout == "auto" else cfg.layout
         self.sell_widths = None                  # per-slice widths (sell)
         self.lane_widths = None                  # host int32[slots, slices]
         self.groups = None                       # static (rows, w) runs
+
+    # ------------------------------------------------------------ shards
+    @property
+    def mat(self):
+        """The operand: one shard's tuple, or a ``Shards`` under a mesh."""
+        return self._view(self.mats)
+
+    @property
+    def state(self) -> Optional[BatchedVMState]:
+        """The VM state: one shard's, or a ``Shards`` under a mesh."""
+        return self._view(self.states) if self.states else None
+
+    def _view(self, per_shard):
+        return Shards(per_shard) if self.mesh is not None else per_shard[0]
+
+    @property
+    def _per(self) -> int:
+        return self.slots // self.n_dev
+
+    def _loc(self, s: int) -> Tuple[int, int]:
+        """(shard, lane within it) of slot ``s``."""
+        return divmod(s, self._per)
+
+    def _lanes(self, t_of) -> np.ndarray:
+        """A host copy of a per-lane state tensor over every slot."""
+        return np.concatenate([_host(t_of(st)) for st in self.states])
+
+    def _lane_round(self, want: int) -> int:
+        """Next lane-bucket edge, one the shard count divides."""
+        return (bucket_up(want) if self.mesh is None
+                else lane_bucket_up(want, parts=self.n_dev))
 
     # ------------------------------------------------------------ sizing
     @property
@@ -130,25 +176,29 @@ class _Pool:
     def _n_pad(self, dims):
         return dims[0] * self.cfg.block_rows if self._ellpack else dims[0]
 
-    def _tensor(self, a, dtype=None) -> torch.Tensor:
-        """A host array on the pool's device (bf16 values through their
+    def _tensor(self, a, d: int, dtype=None) -> torch.Tensor:
+        """A host array on shard ``d``'s device (bf16 values through their
         bits, :func:`repro_torch.core.precision.values_tensor`)."""
-        return values_tensor(a, self.device, dtype)
+        return values_tensor(a, self.devices[d], dtype)
 
-    def _sell_mat(self, arrays, lane_widths) -> tuple:
+    def _sell_mat(self, arrays, lane_widths, d: int) -> tuple:
         """``(cols, vals, iperm)`` plus the SELL kernel's table for these
-        lanes, built on the host from their widths (so the launch grid is
-        known without reading the device)."""
+        lanes on shard ``d``, built on the host from their widths (so the
+        launch grid is known without reading the device)."""
         return tuple(arrays[:3]) + (sell_table(
-            self.groups, device=self.device, lane_widths=lane_widths,
+            self.groups, device=self.devices[d], lane_widths=lane_widths,
             slice_rows=max(1, min(SELL_SLICE_ROWS, self.bucket[0]))),)
+
+    def _shard_widths(self, d: int) -> np.ndarray:
+        return self.lane_widths[d * self._per:(d + 1) * self._per]
 
     def _lane_mat(self, s: int) -> tuple:
         """The operand of slot ``s`` alone (the admission warm-up's)."""
+        d, j = self._loc(s)
         if self.layout == "sell":
-            return self._sell_mat([arr[s:s + 1] for arr in self.mat[:3]],
-                                  self.lane_widths[s:s + 1])
-        return tuple(arr[s:s + 1] for arr in self.mat)
+            return self._sell_mat([arr[j:j + 1] for arr in self.mats[d][:3]],
+                                  self.lane_widths[s:s + 1], d)
+        return tuple(arr[j:j + 1] for arr in self.mats[d])
 
     def _alloc(self, dims):
         """(Re)allocate the slot-stacked tensors for bucket ``dims`` at the
@@ -159,19 +209,29 @@ class _Pool:
         sliced-ELL is rebuilt from the retained per-slot CSRs (shared
         slice widths move the flat offsets).  VM state is layout-
         independent and always copied forward: ``mem``, ``sregs`` and
-        ``queues``.
+        ``queues``.  A lane keeps its shard: lane j of shard d stays lane
+        j of shard d, whatever the new lanes per shard.
         """
-        S = self.slots
+        S, D = self.slots, self.n_dev
+        per = S // D
         vd = self.scheme.vector_dtype
         md = self.scheme.matrix_dtype
-        dev = self.device
         n_pad = self._n_pad(dims)
-        old_mat, old_state = self.mat, self.state
-        if len(self.req_of_slot) < S:
-            pad_n = S - len(self.req_of_slot)
-            self.req_of_slot += [None] * pad_n
-            self.csr_of_slot += [None] * pad_n
-            self.n_of_slot = np.pad(self.n_of_slot, (0, pad_n))
+        old_mats, old_states = self.mats, self.states
+        old_S = len(self.req_of_slot)
+        if old_S < S:
+            # device-local regrowth: shard d's old lanes keep their places
+            # at the head of its new block
+            old_per = old_S // D
+            where = np.array([d * per + j for d in range(D)
+                              for j in range(old_per)], np.int64)
+            req, csr = [None] * S, [None] * S
+            n_of = np.zeros(S, np.int64)
+            for o, s in enumerate(where):
+                req[s], csr[s] = self.req_of_slot[o], self.csr_of_slot[o]
+                n_of[s] = self.n_of_slot[o]
+            self.req_of_slot, self.csr_of_slot, self.n_of_slot = \
+                req, csr, n_of
 
         if self.layout == "sell":
             # Full rebuild at the pool's shared geometry; empty slots get
@@ -183,64 +243,76 @@ class _Pool:
                 n_pad=n_pad, widths=self.sell_widths, scheme=self.scheme)
             self.groups = stacked.groups
             self.lane_widths = stacked.lane_widths
-            mat = (self._tensor(stacked.cols), self._tensor(stacked.vals, md),
-                   self._tensor(stacked.iperm, torch.int64))
+            self.bucket = dims
+            mats = []
+            for d in range(D):
+                lanes = slice(d * per, (d + 1) * per)
+                mats.append(self._sell_mat(
+                    (self._tensor(stacked.cols[lanes], d),
+                     self._tensor(stacked.vals[lanes], d, md),
+                     self._tensor(stacked.iperm[lanes], d, torch.int64)),
+                    self._shard_widths(d), d))
         elif not self._ellpack:
             N, W = dims
             idt = torch.int16 if index_dtype(N) == np.int16 else torch.int32
             # padding entries are (col i, val 0) for row i: self-gather,
             # so no lane can be poisoned through another row's x entry
-            cols = torch.arange(N, dtype=idt, device=dev).expand(
-                S, W, N).contiguous()
-            mat = (cols, torch.zeros((S, W, N), dtype=md, device=dev))
+            mats = [(torch.arange(N, dtype=idt, device=dev).expand(
+                        per, W, N).contiguous(),
+                     torch.zeros((per, W, N), dtype=md, device=dev))
+                    for dev in self.devices]
         else:
             B, T, L, _ = dims
             R = self.cfg.block_rows
-            mat = (torch.zeros((S, B, T), dtype=torch.int32, device=dev),
-                   torch.zeros((S, B, T, L, R), dtype=md, device=dev),
-                   torch.zeros((S, B, T, L, R), dtype=torch.int32,
-                               device=dev))
-        mem = torch.zeros((6, S, n_pad), dtype=vd, device=dev)
-        mem[BUF["M"]] = 1.0                      # unit diag on empty rows
-        state = BatchedVMState(
-            k=torch.zeros((), dtype=torch.int32, device=dev),
-            it=torch.zeros(S, dtype=torch.int32, device=dev),
-            status=torch.zeros(S, dtype=torch.int32, device=dev),
-            mem=mem,
-            queues=torch.zeros((8, S, n_pad), dtype=vd, device=dev),
-            sregs=torch.zeros((6, S), dtype=vd, device=dev),
-            active=torch.zeros(S, dtype=torch.bool, device=dev),
-            trace=torch.zeros((S, 0), dtype=vd, device=dev))
-        tol = torch.full((S,), self.cfg.tol, dtype=vd, device=dev)
-        maxiter_vec = torch.zeros(S, dtype=torch.int32, device=dev)
+            mats = [(torch.zeros((per, B, T), dtype=torch.int32, device=dev),
+                     torch.zeros((per, B, T, L, R), dtype=md, device=dev),
+                     torch.zeros((per, B, T, L, R), dtype=torch.int32,
+                                 device=dev))
+                    for dev in self.devices]
+        states, tols, maxiters = [], [], []
+        for d, dev in enumerate(self.devices):
+            mem = torch.zeros((6, per, n_pad), dtype=vd, device=dev)
+            mem[BUF["M"]] = 1.0                  # unit diag on empty rows
+            state = BatchedVMState(
+                k=torch.zeros((), dtype=torch.int32, device=dev),
+                it=torch.zeros(per, dtype=torch.int32, device=dev),
+                status=torch.zeros(per, dtype=torch.int32, device=dev),
+                mem=mem,
+                queues=torch.zeros((8, per, n_pad), dtype=vd, device=dev),
+                sregs=torch.zeros((6, per), dtype=vd, device=dev),
+                active=torch.zeros(per, dtype=torch.bool, device=dev),
+                trace=torch.zeros((per, 0), dtype=vd, device=dev))
+            tol = torch.full((per,), self.cfg.tol, dtype=vd, device=dev)
+            maxiter_vec = torch.zeros(per, dtype=torch.int32, device=dev)
+            if old_states:
+                # Growing bucket and/or lane count: copy every old lane
+                # into the new tensors (padded tails stay what a wider VM
+                # would hold for rows that never existed).
+                def corner(t):
+                    return tuple(slice(0, n) for n in t.shape)
 
-        if old_mat is not None:
-            # Growing bucket and/or lane count: copy every old lane into
-            # the new tensors (padded tails stay what a wider VM would
-            # hold for rows that never existed).
-            def corner(t):
-                return tuple(slice(0, d) for d in t.shape)
-
-            if self.layout != "sell":
-                # the old region is valid verbatim (row-ELL pads self-
-                # gather; ELLPACK pads are zero); the copy also widens
-                # int16 cols to int32 when N crossed 2^15
-                for new, old in zip(mat, old_mat):
-                    new[corner(old)] = old.to(new.dtype)
-            for name in ("it", "status", "sregs", "active", "mem",
-                         "queues"):
-                old = getattr(old_state, name)
-                getattr(state, name)[corner(old)] = old
-            state = state._replace(k=old_state.k.clone())
-            tol[: self.tol.shape[0]] = self.tol
-            maxiter_vec[: self.maxiter_vec.shape[0]] = self.maxiter_vec
+                if self.layout != "sell":
+                    # the old region is valid verbatim (row-ELL pads self-
+                    # gather; ELLPACK pads are zero); the copy also widens
+                    # int16 cols to int32 when N crossed 2^15
+                    for new, old in zip(mats[d], old_mats[d]):
+                        new[corner(old)] = old.to(new.dtype)
+                old_st = old_states[d]
+                for name in ("it", "status", "sregs", "active", "mem",
+                             "queues"):
+                    old = getattr(old_st, name)
+                    getattr(state, name)[corner(old)] = old
+                state = state._replace(k=old_st.k.clone())
+                tol[: self.tols[d].shape[0]] = self.tols[d]
+                maxiter_vec[: self.maxiters[d].shape[0]] = self.maxiters[d]
+            states.append(state)
+            tols.append(tol)
+            maxiters.append(maxiter_vec)
+        if old_states:
             self.metrics.bump("growths")
         self.bucket = dims
-        self.mat = (self._sell_mat(mat, self.lane_widths)
-                    if self.layout == "sell" else mat)
-        self.state = state
-        self.tol = tol
-        self.maxiter_vec = maxiter_vec
+        self.mats, self.states = mats, states
+        self.tols, self.maxiters = tols, maxiters
 
     def _matvec_of(self):
         return _matvec_factory(
@@ -254,7 +326,7 @@ class _Pool:
         free = [s for s, r in enumerate(self.req_of_slot) if r is None]
         if not free and self.slots < self.capacity:
             # Compaction shrank the pool; grow lanes back for this admit.
-            self.slots = min(self.capacity, bucket_up(self.slots + 1))
+            self.slots = min(self.capacity, self._lane_round(self.slots + 1))
             self._alloc(self.bucket)
             free = [s for s, r in enumerate(self.req_of_slot) if r is None]
         if not free:
@@ -292,12 +364,14 @@ class _Pool:
             else:
                 st1 = stack_sell([a], n_pad=n_pad, widths=self.sell_widths,
                                  scheme=self.scheme)
-                arrays = self.mat[:3]
+                d, j = self._loc(s)
+                arrays = self.mats[d][:3]
                 for arr, lane in zip(arrays, (st1.cols[0], st1.vals[0],
                                               st1.iperm[0])):
-                    arr[s] = self._tensor(lane, arr.dtype)
+                    arr[j] = self._tensor(lane, d, arr.dtype)
                 self.lane_widths[s] = st1.lane_widths[0]
-                self.mat = self._sell_mat(arrays, self.lane_widths)
+                self.mats[d] = self._sell_mat(arrays, self._shard_widths(d),
+                                              d)
         else:
             if cfg.backend == "xla":
                 cols_l, vals_l = csr_rowell(a)
@@ -329,42 +403,44 @@ class _Pool:
                 m = pad_ellpack(m, n_row_blocks=B, n_slabs=T, ell=L)
                 lanes = (m.tile_cols, m.vals, m.local_cols)
             self.csr_of_slot[s] = a
-            for arr, lane in zip(self.mat, lanes):
-                arr[s] = self._tensor(lane, arr.dtype)
+            d, j = self._loc(s)
+            for arr, lane in zip(self.mats[d], lanes):
+                arr[j] = self._tensor(lane, d, arr.dtype)
 
         vd = self.scheme.vector_dtype
+        d, j = self._loc(s)
         n = a.shape[0]
-        n_pad = self.state.mem.shape[-1]
-        d = np.ones(n_pad)
-        d[:n] = a.diagonal()
+        st = self.states[d]
+        n_pad = st.mem.shape[-1]
+        dg = np.ones(n_pad)
+        dg[:n] = a.diagonal()
         bb = np.zeros(n_pad)
         bb[:n] = np.ones(n) if b is None else np.asarray(b)
         xx = np.zeros(n_pad)
         if x0 is not None:
             xx[:n] = np.asarray(x0)
-        diag_l = self._tensor(d[None], vd)
-        b_l = self._tensor(bb[None], vd)
-        x0_l = self._tensor(xx[None], vd)
+        diag_l = self._tensor(dg[None], d, vd)
+        b_l = self._tensor(bb[None], d, vd)
+        x0_l = self._tensor(xx[None], d, vd)
 
         # JPCG warm-up for this lane alone, through the pool's own SpMV.
         r = b_l - self._matvec_of()(self._lane_mat(s))(x0_l)
         z = r / diag_l
         rz, rr = _row_dot(r, z)[0], _row_dot(r, r)[0]
 
-        st = self.state
         req_tol = torch.tensor(cfg.tol if tol is None else tol, dtype=vd,
-                               device=self.device)
-        st.it[s] = 0
-        st.mem[:, s] = torch.cat([x0_l, r, z, torch.zeros_like(r), diag_l,
+                               device=self.devices[d])
+        st.it[j] = 0
+        st.mem[:, j] = torch.cat([x0_l, r, z, torch.zeros_like(r), diag_l,
                                   b_l])
-        st.queues[:, s] = 0.0
-        st.sregs[:, s] = 0.0
-        st.sregs[SREG["rz"], s] = rz
-        st.sregs[SREG["rr"], s] = rr
-        st.active[s] = rr > req_tol
-        st.status[s] = initial_status(rr, req_tol, detect=cfg.detect)
-        self.tol[s] = req_tol
-        self.maxiter_vec[s] = cfg.maxiter if maxiter is None else maxiter
+        st.queues[:, j] = 0.0
+        st.sregs[:, j] = 0.0
+        st.sregs[SREG["rz"], j] = rz
+        st.sregs[SREG["rr"], j] = rr
+        st.active[j] = rr > req_tol
+        st.status[j] = initial_status(rr, req_tol, detect=cfg.detect)
+        self.tols[d][j] = req_tol
+        self.maxiters[d][j] = cfg.maxiter if maxiter is None else maxiter
         self.n_of_slot[s] = n
         self.metrics.bump("admits")
         self.metrics.bump("spmv_calls")          # the warm-up r0 = b - A·x0
@@ -374,45 +450,50 @@ class _Pool:
     def _lane_stream_bytes(self) -> int:
         """At-rest nonzero stream per lane per SpMV: packed values +
         column indices, padding included, from the slot-stacked tensors."""
-        if self._ellpack:
-            nb = _nbytes(self.mat[1]) + _nbytes(self.mat[2])
-        else:
-            nb = _nbytes(self.mat[0]) + _nbytes(self.mat[1])
-        return int(nb) // self.slots
+        pick = slice(1, 3) if self._ellpack else slice(0, 2)
+        return int(sum(_nbytes(t) for mat in self.mats
+                       for t in mat[pick])) // self.slots
 
     # -------------------------------------------------------------- tick
     @property
     def any_active(self) -> bool:
-        return self.state is not None and bool(self.state.active.any())
+        return bool(self.states) and shard_any(st.active
+                                                 for st in self.states)
+
+    def active_lanes(self) -> np.ndarray:
+        """Host copy of every slot's ``active`` flag."""
+        return self._lanes(lambda st: st.active)
 
     def step(self) -> None:
         cfg = self.cfg
         stepper_kw = dict(
             backend=cfg.backend, scheme=self.scheme, bucket=self.bucket,
             chunk=cfg.chunk_iters, layout=self.layout, groups=self.groups,
-            index_bytes=self.mat[2 if self._ellpack else 0].element_size(),
+            index_bytes=self.mats[0][2 if self._ellpack else 0]
+            .element_size(),
             col_tile=cfg.col_tile,
             n_col_tiles=self.bucket[-1] if self._ellpack else None,
             steps_per_sync=cfg.steps_per_sync, donate=cfg.donate,
-            detect=cfg.detect)
+            detect=cfg.detect, mesh=self.mesh)
         # Host copies of the pre-step counters: a donating step updates
         # the state tensors in place.
-        it0 = _host(self.state.it)
-        st0 = _host(self.state.status)
+        it0 = self._lanes(lambda st: st.it)
+        st0 = self._lanes(lambda st: st.status)
+        args = (self.mat, self.state, self._view(self.tols),
+                self._view(self.maxiters))
         if cfg.specialize:
             stepper = make_vm_stepper(program=self.program_np, **stepper_kw)
-            self.state = stepper(self.mat, self.state, self.tol,
-                                 self.maxiter_vec)
+            out = stepper(*args)
         else:
             stepper = make_vm_stepper(**stepper_kw)
-            self.state = stepper(self.program_np, self.mat, self.state,
-                                 self.tol, self.maxiter_vec)
+            out = stepper(self.program_np, *args)
+        self.states = list(out) if self.mesh is not None else [out]
         # Accounting: committed iterations plus one discarded program
         # execution per lane that broke down during this step (its tick
         # ran the SpMV before the writes were thrown away).  Frozen
         # lanes' dead compute is deliberately not counted.
-        it_delta = int((_host(self.state.it) - it0).sum())
-        broke = int((is_breakdown_codes(_host(self.state.status))
+        it_delta = int((self._lanes(lambda st: st.it) - it0).sum())
+        broke = int((is_breakdown_codes(self._lanes(lambda st: st.status))
                      & ~is_breakdown_codes(st0)).sum())
         m = self.metrics
         m.bump("chunks")
@@ -422,20 +503,21 @@ class _Pool:
                (it_delta + broke) * self._lane_stream_bytes())
 
     def harvest(self) -> Dict[int, CGResult]:
-        if self.state is None:
+        if not self.states:
             return {}
         done: Dict[int, CGResult] = {}
-        active = _host(self.state.active)
-        its = _host(self.state.it)
-        statuses = _host(self.state.status)
-        rrs = _host(self.state.sregs[SREG["rr"]])
-        tols = _host(self.tol)
+        active = self.active_lanes()
+        its = self._lanes(lambda st: st.it)
+        statuses = self._lanes(lambda st: st.status)
+        rrs = self._lanes(lambda st: st.sregs[SREG["rr"]])
+        tols = np.concatenate([_host(t) for t in self.tols])
         for s, rid in enumerate(self.req_of_slot):
             if rid is None or active[s]:
                 continue
             n = int(self.n_of_slot[s])
+            d, j = self._loc(s)
             # A host copy: the next donating step rewrites mem in place.
-            x = self.state.mem[BUF["x"], s, :n].to("cpu", copy=True)
+            x = self.states[d].mem[BUF["x"], j, :n].to("cpu", copy=True)
             # An inactive lane still RUNNING is the detection-off
             # non-finite-at-admit corner; it wears the budget face.
             code = int(statuses[s])
@@ -460,49 +542,72 @@ class _Pool:
         fraction drops strictly below ``cfg.compact_fraction`` (step
         boundaries only).  Every VM op is lane-independent, so repacking
         is bitwise neutral per lane.  Returns True if the pool was
-        repacked."""
-        if self.state is None:
+        repacked.
+
+        Compaction is device-local: each shard repacks its own live lanes
+        (moving a live lane would carry its in-flight state to another
+        device), into a per-shard lane bucket sized by the fullest shard,
+        so every shard keeps the same lane count."""
+        if not self.states:
             return False
-        S = self.slots
+        S, D, per = self.slots, self.n_dev, self._per
         occ = [s for s, r in enumerate(self.req_of_slot) if r is not None]
         live = len(occ)
         if live == 0:
             return False
-        target = bucket_up(live)
+        by_shard = [[s for s in occ if s // per == d] for d in range(D)]
+        t_per = bucket_up(max(len(o) for o in by_shard))
+        target = t_per * D
         if target >= S or live / S >= self.cfg.compact_fraction:
             return False
-        sel = np.asarray(
-            occ[:target] +
-            [s for s in range(S) if s not in occ][: target - live], np.int64)
-        idx = torch.from_numpy(sel).to(self.device)
+        sel = np.asarray([s for d, o in enumerate(by_shard)
+                          for s in (o + [s for s in range(d * per,
+                                                          (d + 1) * per)
+                                         if self.req_of_slot[s] is None]
+                                    )[:t_per]], np.int64)
         if self.layout == "sell":
             self.lane_widths = self.lane_widths[sel]
-            self.mat = self._sell_mat([arr[idx] for arr in self.mat[:3]],
-                                      self.lane_widths)
-        else:
-            self.mat = tuple(arr[idx] for arr in self.mat)
-        st = self.state
-        self.state = st._replace(
-            it=st.it[idx], status=st.status[idx], mem=st.mem[:, idx],
-            queues=st.queues[:, idx], sregs=st.sregs[:, idx],
-            active=st.active[idx], trace=st.trace[idx])
-        self.tol = self.tol[idx]
-        self.maxiter_vec = self.maxiter_vec[idx]
         self.req_of_slot = [self.req_of_slot[s] for s in sel]
         self.csr_of_slot = [self.csr_of_slot[s] for s in sel]
         self.n_of_slot = self.n_of_slot[sel]
         self.slots = target
+        for d in range(D):
+            idx = torch.from_numpy(sel[d * t_per:(d + 1) * t_per]
+                                   - d * per).to(self.devices[d])
+            if self.layout == "sell":
+                self.mats[d] = self._sell_mat(
+                    [arr[idx] for arr in self.mats[d][:3]],
+                    self._shard_widths(d), d)
+            else:
+                self.mats[d] = tuple(arr[idx] for arr in self.mats[d])
+            st = self.states[d]
+            self.states[d] = st._replace(
+                it=st.it[idx], status=st.status[idx], mem=st.mem[:, idx],
+                queues=st.queues[:, idx], sregs=st.sregs[:, idx],
+                active=st.active[idx], trace=st.trace[idx])
+            self.tols[d] = self.tols[d][idx]
+            self.maxiters[d] = self.maxiters[d][idx]
         self.metrics.bump("compactions")
         return True
 
 
 class SolverEngine:
     """Admit SPD systems into batch slots; solve them on the stream VM on
-    ``cfg.device`` (default ``"cuda"``)."""
+    ``cfg.device`` (default ``"cuda"``), or with their lanes split over
+    ``cfg.mesh`` (:mod:`repro_torch.core.shard`)."""
 
     def __init__(self, cfg: SolverEngineConfig):
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        if cfg.mesh is not None:
+            if cfg.device is not None:
+                raise ValueError("SolverEngineConfig takes either device= "
+                                 "or mesh= (the mesh names the devices)")
+            self.mesh = lane_mesh(cfg.mesh)
+            self.devices = self.mesh
+        else:
+            self.mesh = None
+            self.devices = (resolve_device(cfg.device),)
+        self.device = self.devices[0]
         self._pools: Dict[Tuple[str, str], _Pool] = {}
         self._next_id = 0
         self.results: Dict[int, CGResult] = {}
@@ -517,8 +622,8 @@ class SolverEngine:
         policy = self.cfg.policy if policy is None else policy
         key = (scheme.name, policy)
         if key not in self._pools:
-            self._pools[key] = _Pool(self.cfg, scheme, policy, self.device,
-                                     self._metrics)
+            self._pools[key] = _Pool(self.cfg, scheme, policy, self.devices,
+                                     self.mesh, self._metrics)
         return self._pools[key]
 
     def metrics(self) -> dict:
@@ -528,16 +633,16 @@ class SolverEngine:
         / ``iterations`` / ``spmv_calls`` / ``bytes_streamed_est`` (SpMV
         events × the per-lane at-rest nonzero stream), ``growths`` /
         ``compactions``; ``exit_status`` is the histogram of recorded
-        request exits; ``pools`` reports per-(scheme, policy) occupancy;
-        ``executable_cache`` is
+        request exits; ``pools`` reports per-(scheme, policy) occupancy
+        and lane ``shards``; ``executable_cache`` is
         :func:`repro_torch.core.batch.batch_cache_info`.
         """
         pools = {
             f"{sch}/{pol}": {
                 "slots": p.slots,
+                "shards": p.n_dev,
                 "occupied": sum(r is not None for r in p.req_of_slot),
-                "active": (int(p.state.active.sum())
-                           if p.state is not None else 0),
+                "active": (int(p.active_lanes().sum()) if p.states else 0),
             }
             for (sch, pol), p in self._pools.items()}
         return self._metrics.snapshot(extra={
@@ -552,7 +657,9 @@ class SolverEngine:
         capacity)."""
         def pool_free(p: Optional[_Pool]) -> int:
             if p is None:
-                return self.cfg.batch_slots
+                return (self.cfg.batch_slots if self.mesh is None else
+                        lane_bucket_up(self.cfg.batch_slots,
+                                       parts=len(self.mesh)))
             return p.capacity - sum(r is not None for r in p.req_of_slot)
 
         if pool is not None:
@@ -562,13 +669,13 @@ class SolverEngine:
                    self.cfg.policy if policy is None else policy)
             return pool_free(self._pools.get(key))
         if not self._pools:
-            return self.cfg.batch_slots
+            return pool_free(None)
         return sum(pool_free(p) for p in self._pools.values())
 
     @property
     def active_count(self) -> int:
-        return sum(int(p.state.active.sum()) for p in self._pools.values()
-                   if p.state is not None)
+        return sum(int(p.active_lanes().sum()) for p in self._pools.values()
+                   if p.states)
 
     def submit(self, a, b=None, x0=None, *, tol: Optional[float] = None,
                maxiter: Optional[int] = None, policy: Optional[str] = None,
@@ -642,8 +749,8 @@ class SolverEngine:
         while any(p.any_active for p in self._pools.values()):
             if ticks >= max_ticks:
                 live = [rid for p in self._pools.values()
-                        for s, rid in enumerate(p.req_of_slot)
-                        if rid is not None and bool(p.state.active[s])]
+                        for rid, on in zip(p.req_of_slot, p.active_lanes())
+                        if rid is not None and on]
                 raise RuntimeError(
                     f"run_to_completion hit max_ticks={max_ticks} with "
                     f"requests {live} still active (chunk_iters="

@@ -25,7 +25,7 @@ import numpy as np
 from repro_torch.core.precision import host_values
 from repro_torch.sparse.ellpack import EllpackMatrix
 
-__all__ = ["bucket_up", "pad_ellpack", "stack_ellpack",
+__all__ = ["bucket_up", "lane_bucket_up", "pad_ellpack", "stack_ellpack",
            "csr_rowell", "stack_rowell", "stack_sell", "StackedEllpack",
            "StackedRowEll", "StackedSell", "sell_slice_widths",
            "index_dtype", "rowell_padding_ratio", "choose_layout",
@@ -41,6 +41,17 @@ def bucket_up(x: int, *, minimum: int = 1) -> int:
     """
     x = max(int(x), minimum)
     return 1 << (x - 1).bit_length()
+
+
+def lane_bucket_up(x: int, *, parts: int = 1, minimum: int = 1) -> int:
+    """Round a *lane* count up to a bucket edge that ``parts`` shards
+    divide evenly: the power-of-two edge of :func:`bucket_up`, rounded up
+    to a multiple of ``parts``.  The lane-sharded serving pool
+    (:mod:`repro_torch.core.shard`) gives each of its D shards the same
+    number of lanes; ``parts=1`` is :func:`bucket_up` exactly."""
+    t = bucket_up(x, minimum=minimum)
+    parts = max(int(parts), 1)
+    return -(-t // parts) * parts
 
 
 def _pad_axis(a: np.ndarray, axis: int, size: int) -> np.ndarray:

@@ -159,7 +159,11 @@ def test_solver_metrics_account_exactly():
 
 
 def test_unported_options_raise():
+    """``interpret=`` has no counterpart in the port; ``mesh=`` is ported
+    (tests/test_torch_shard.py) and names the devices in place of
+    ``device=``."""
     bag = _bag(port_sparse)
-    for kw in (dict(mesh=object()), dict(interpret=True)):
-        with pytest.raises(NotImplementedError):
-            jpcg_solve_batched(bag, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="interpret"):
+        jpcg_solve_batched(bag, device="cpu", interpret=True)
+    with pytest.raises(ValueError, match="mesh"):
+        jpcg_solve_batched(bag, device="cpu", mesh=("cpu",))

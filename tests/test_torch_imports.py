@@ -24,20 +24,29 @@ from repro_torch.kernels import _build
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "repro" or m.startswith("repro."))
+import torch.distributed as dist
 print(json.dumps([len(names), leaked, len(_build._LIBS),
-                  "repro_torch.sparse.mtx" in names]))
+                  sorted(set(NEEDED) - set(names)),
+                  dist.is_available() and dist.is_initialized()]))
 """
+#: modules the probe must find (and import) among the port's
+NEEDED = ("repro_torch.sparse.mtx", "repro_torch.core.shard",
+          "repro_torch.sparse.partition", "repro_torch.distributed",
+          "repro_torch.distributed.cg_dist")
 
 
 def test_port_imports_neither_jax_nor_reference():
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+    probe = f"NEEDED = {NEEDED!r}\n" + _PROBE
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, leaked, libs, mtx = json.loads(out.stdout.strip().splitlines()[-1])
-    assert n >= 20 and mtx, out.stdout       # every module was imported
+    n, leaked, libs, missing, pg = json.loads(
+        out.stdout.strip().splitlines()[-1])
+    assert n >= 20 and missing == [], out.stdout   # every module imported
     assert leaked == [], f"port imported {leaked}"
     assert libs == 0, "importing the port loaded a kernel library"
+    assert not pg, "importing the port started a process group"
 
 
 @pytest.fixture
