@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py        # full size, phases 0-9 (6b, 6c); no options
+    python3 chip_smoke.py        # full size, phases 0-10 (6b, 6c); no options
 
 0. The build: every kernel's registers, stack frame and spills from the
    ptxas report; each ELLPACK instantiation with a register tree
@@ -129,10 +129,26 @@
    rollout of ``forward_logits`` and the 600-token request's first token
    equals ``forward``'s argmax; the bf16 tokens' agreement with fp32 is
    printed as a rate.
+10. Training gemma3-1b at full width (999,812,736 random fp32 parameters,
+   bf16 compute, ``remat``; ``SyntheticLM`` Markov data, B = 8, S = 128),
+   after the serving engine is freed: a ``Trainer`` with AdamW (bf16
+   moments) for 4 steps, checkpointed at step 2 (8.0 GB, npz + sha256)
+   and resumed into other parameters, whose steps 2–3 give the same
+   losses and every parameter the same bits as the uninterrupted run's;
+   the loss and gradients of 2 strided microbatches within rel 1e-3 and
+   ‖Δ‖ ≤ 3e-2 ‖g‖ of the full batch's, and one ``microbatches=2`` step;
+   2 CGGN steps through ``launch/train.cggn_lm_step`` (cg_iters 8, 4
+   probes, ``tpu_fp32``; the first refreshes the diagonal), every metric
+   finite and ‖δ‖ ≤ ``max_delta_norm``, the inner CG's iterations
+   printed; a GGN matvec timed alone.  ms/step and tokens/s, ms per CGGN
+   step and per matvec, ``max_memory_allocated`` for each optimizer, and
+   the device-busy share (``torch.profiler``) of one AdamW step and one
+   matvec.  No kernel is on this path (the reference's training path
+   reaches no Pallas kernel): its launch counts stay 0.
 
 Launch counters are set to 0 right before the solves of phases 2, 3, 6,
-6b and 6c and before phase 8, and read right after; each kernel of a path
-must have launched on it (6b: ``spmv_sell`` and ``spmv_ellpack``; 6c runs
+6b and 6c and before phases 8 and 10, and read right after; each kernel
+of a path must have launched on it (6b: ``spmv_sell`` and ``spmv_ellpack``; 6c runs
 the reference's plain banked-ELL product, no kernel; ``dot3`` has no
 solver path: phase 5 launches it; nor have ``spmv_ell`` at
 ``tpu_fp32``/``tpu_v1``/``tpu_v2``).  A tier
@@ -141,7 +157,8 @@ instantiation counts under its kernel's name and, apart, under
 No path is cut in depth: every phase runs at the size above.
 Any failed check raises, and so does any kernel's time under 95 % of its
 bound.  The last line is the JSON result; before the card's line come the
-sharded and distributed phases' numbers, then the LM path's.
+sharded and distributed phases' numbers, then the LM path's, then the
+training path's.
 """
 from __future__ import annotations
 
@@ -2055,6 +2072,205 @@ def phase_engine_lm(params, dev):
     return row
 
 
+# ------------------------------------------------------------- phase 10
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+ADAMW_STEPS, CKPT_AT = 4, 2
+CGGN_STEPS = 2
+#: the microbatch step against the full batch: both run the blocks in bf16,
+#: on matmuls of other row counts (cuBLAS picks its kernels by shape), so
+#: the two round different products; the loss to rel 1e-3 and the
+#: gradients to ‖Δ‖ ≤ 3e-2 ‖g‖ (a few bf16 ulps, 2⁻⁸ each)
+MICRO_LOSS_RTOL, MICRO_GRAD_RTOL = 1e-3, 3e-2
+MATVEC_REPS = 3
+
+
+def _gib(b: int) -> str:
+    return f"{b / 2**30:.2f} GiB"
+
+
+def phase_train(dev):
+    """The training path at gemma3-1b's full width (bf16 compute, fp32
+    parameters, ``remat``): a ``Trainer`` with AdamW (bf16 moments) for 4
+    steps, checkpointed at step 2 and resumed into fresh parameters, steps
+    3–4 bit for bit; the gradients of 2 strided microbatches against the
+    full batch, and one ``microbatches=2`` step; 2 CGGN steps through the
+    launcher's ``cggn_lm_step`` (cg_iters 8, 4 probes, ``tpu_fp32``), the
+    first refreshing the diagonal; the GGN matvec timed and profiled."""
+    import math
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.gn import make_ggn_matvec
+    from repro_torch.launch.train import CGGN_CONFIG, cggn_lm_step, lm_ggn_fns
+    from repro_torch.models import count_params, init_params
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
+                                   Trainer, TrainerConfig, adamw_init,
+                                   cggn_init, make_train_step)
+    from repro_torch.train.loop import loss_and_grads
+
+    cfg = get_config(ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0),
+                       device=dev)
+    opt = AdamWConfig(lr=3e-3)                        # launcher's default
+    step_fn = make_train_step(cfg, opt=opt, device=dev)
+    row = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype=cfg.dtype,
+               remat=cfg.remat)
+
+    def trainer(seed, ckpt_dir):
+        params = init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                             device=dev)
+        return Trainer(cfg, data, step_fn, params, adamw_init(params, opt),
+                       TrainerConfig(total_steps=ADAMW_STEPS, ckpt_every=0,
+                                     ckpt_dir=ckpt_dir, log_every=0),
+                       torch.Generator().manual_seed(seed))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = trainer(0, tmp)
+        n = count_params(tr.params)
+        if n != cfg.param_count():
+            raise AssertionError(f"{ARCH}: {n} parameters, config says "
+                                 f"{cfg.param_count()}")
+        tr.run(CKPT_AT)
+        t0 = time.perf_counter()
+        tr.save()
+        save_s = time.perf_counter() - t0
+        tr.run(ADAMW_STEPS - CKPT_AT)
+        torch.cuda.synchronize()
+        row["adamw_peak_bytes"] = torch.cuda.max_memory_allocated()
+        log_ = tr.metrics_log
+        losses = [m["loss"] for m in log_]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"AdamW losses {losses}")
+        # step 0 pays the first call's set-up; the rest are steady
+        step_ms = [m["step_time_s"] * 1e3 for m in log_]
+        ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        row.update(adamw_losses=losses, adamw_step_ms=step_ms,
+                   adamw_ms_per_step=ms, adamw_tokens_per_s=tokens / ms * 1e3,
+                   ckpt_save_s=save_s)
+        log(f"  AdamW {ADAMW_STEPS} steps, B={TRAIN_BATCH} S={TRAIN_SEQ} "
+            f"({n} parameters, bf16 moments): losses "
+            f"{[round(v, 4) for v in losses]}; steps "
+            f"{[round(v, 1) for v in step_ms]} ms → {ms:.1f} ms/step = "
+            f"{tokens / ms * 1e3:.0f} tokens/s; peak "
+            f"{_gib(row['adamw_peak_bytes'])}; checkpoint at step {CKPT_AT} "
+            f"saved in {save_s:.1f} s")
+
+        tr2 = trainer(1, tmp)                         # other parameters
+        t0 = time.perf_counter()
+        if not tr2.try_resume() or tr2.step != CKPT_AT:
+            raise AssertionError(f"resume: step {tr2.step}")
+        row["ckpt_restore_s"] = time.perf_counter() - t0
+        tr2.run(ADAMW_STEPS - CKPT_AT)
+        resumed = [m["loss"] for m in tr2.metrics_log]
+        same = all(torch.equal(a, b) for a, b in
+                   zip(tr.params.parameters(), tr2.params.parameters()))
+        if resumed != losses[CKPT_AT:] or not same:
+            raise AssertionError(
+                f"resume from step {CKPT_AT}: losses {resumed} != "
+                f"{losses[CKPT_AT:]}, parameters equal: {same}")
+        log(f"  resumed from step {CKPT_AT} into fresh parameters (restored "
+            f"in {row['ckpt_restore_s']:.1f} s): steps {CKPT_AT}–"
+            f"{ADAMW_STEPS - 1} losses {resumed} and every parameter after "
+            f"step {ADAMW_STEPS - 1} bit for bit the uninterrupted run's")
+    del tr
+
+    # one AdamW step's device-busy share (a real step of tr2)
+    batch = data.batch_at(ADAMW_STEPS)
+    _, wall, ev = device_profile(lambda: step_fn(
+        tr2.params, tr2.opt_state, batch, ADAMW_STEPS))
+    busy = sum(t for _, t, _ in ev)
+    # the share against the unprofiled step (the profiler slows the
+    # launches), and against the profiled one
+    row.update(adamw_busy_ms=busy, adamw_profiled_ms=wall * 1e3,
+               adamw_busy_share=busy / ms,
+               adamw_busy_share_profiled=busy / (wall * 1e3),
+               adamw_kernels=sum(c for _, _, c in ev))
+    log(f"  one profiled AdamW step: device busy {busy:.1f} ms = "
+        f"{busy / ms:.1%} of the {ms:.1f} ms step ({busy / (wall * 1e3):.1%} "
+        f"of the {wall * 1e3:.1f} ms profiled), {row['adamw_kernels']} "
+        "kernels")
+    for key, t, c in sorted(ev, key=lambda e: -e[1])[:6]:
+        log(f"      {t:9.2f} ms {c:6d}x  {key[:80]}")
+
+    # two strided microbatches against the full batch, same parameters
+    l1, g1 = loss_and_grads(tr2.params, cfg, batch, 1)
+    l2, g2 = loss_and_grads(tr2.params, cfg, batch, 2)
+    dl = abs(float(l2) - float(l1)) / abs(float(l1))
+    num = sum(float(torch.sum(torch.square(g2[k] - g1[k]))) for k in g1)
+    den = sum(float(torch.sum(torch.square(g1[k]))) for k in g1)
+    dg = math.sqrt(num / den)
+    del g1, g2
+    if dl > MICRO_LOSS_RTOL or not dg <= MICRO_GRAD_RTOL:
+        raise AssertionError(f"microbatches=2: loss rel {dl:.2e}, grads "
+                             f"‖Δ‖/‖g‖ {dg:.2e}")
+    step2 = make_train_step(cfg, opt=opt, microbatches=2, device=dev)
+    (_, _, m2), wall = _single(lambda: step2(tr2.params, tr2.opt_state,
+                                             batch, ADAMW_STEPS + 1))
+    row.update(micro_loss_rel=dl, micro_grad_rel=dg,
+               micro_step_ms=wall * 1e3)
+    log(f"  microbatches=2: loss {float(l2):.6f} vs {float(l1):.6f} (rel "
+        f"{dl:.2e} ≤ {MICRO_LOSS_RTOL}), grads ‖Δ‖/‖g‖ {dg:.2e} ≤ "
+        f"{MICRO_GRAD_RTOL}; one make_train_step(microbatches=2) step "
+        f"{wall * 1e3:.1f} ms, loss {float(m2['loss']):.4f}")
+    del tr2, step2
+
+    # CGGN, the launcher's settings
+    params = init_params(cfg, torch.Generator(dev).manual_seed(2),
+                         device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = cggn_init(params, 0)
+    steps = []
+    for step in range(CGGN_STEPS):
+        (params, state, m), wall = _single(
+            lambda: cggn_lm_step(params, state, data.batch_at(step)))
+        m = {k: float(v) for k, v in m.items()}
+        m["ms"] = wall * 1e3
+        steps.append(m)
+        if not all(math.isfinite(v) for v in m.values()) or \
+                m["delta_norm"] > CGGN_CONFIG.max_delta_norm * (1 + 1e-6):
+            raise AssertionError(f"CGGN step {step}: {m}")
+        log(f"  CGGN step {step}{' (refreshes the diagonal)' if step == 0 else ''}: "
+            f"loss {m['loss']:.4f}, |g| {m['grad_norm']:.4f}, |δ| "
+            f"{m['delta_norm']:.4f} (≤ {CGGN_CONFIG.max_delta_norm}), inner "
+            f"CG {int(m['cg_iters'])} iterations, {m['ms']:.0f} ms")
+    row["cggn_peak_bytes"] = torch.cuda.max_memory_allocated()
+    row["cggn_steps"] = steps
+    del state
+
+    # the GGN matvec alone: timed, then profiled once
+    logits_fn, loss_logits = lm_ggn_fns(params, data.batch_at(0))
+    mv, nv = make_ggn_matvec(loss_logits, logits_fn, params,
+                             CGGN_CONFIG.damping)
+    v = torch.randn(nv, generator=torch.Generator(dev).manual_seed(3),
+                    device=dev)
+    mv(v)
+    walls = [_single(lambda: mv(v))[1] * 1e3 for _ in range(MATVEC_REPS)]
+    _, wall, ev = device_profile(lambda: mv(v))
+    busy = sum(t for _, t, _ in ev)
+    row.update(matvec_ms=min(walls), matvec_ms_all=walls,
+               matvec_busy_ms=busy, matvec_profiled_ms=wall * 1e3,
+               matvec_busy_share=busy / min(walls),
+               matvec_busy_share_profiled=busy / (wall * 1e3),
+               matvec_kernels=sum(c for _, _, c in ev))
+    log(f"  CGGN: {[round(s['ms']) for s in steps]} ms per step (the first "
+        f"with 4 probes, the r0 matvec and {int(steps[0]['cg_iters'])} CG "
+        f"iterations); peak {_gib(row['cggn_peak_bytes'])}; one GGN matvec "
+        f"{min(walls):.1f} ms (of {[round(w, 1) for w in walls]}); profiled: "
+        f"device busy {busy:.1f} ms = {busy / min(walls):.1%} of "
+        f"{min(walls):.1f} ms ({busy / (wall * 1e3):.1%} of the "
+        f"{wall * 1e3:.1f} ms profiled), {row['matvec_kernels']} kernels")
+    for key, t, c in sorted(ev, key=lambda e: -e[1])[:6]:
+        log(f"      {t:9.2f} ms {c:6d}x  {key[:80]}")
+    del mv, v, params
+    torch.cuda.empty_cache()
+    return row
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if len(sys.argv) > 1:
@@ -2157,6 +2373,12 @@ def main() -> int:
     log_phase(f"[phase 9] DecodeEngine on {ARCH} at full width")
     lm["engine"] = phase_engine_lm(params, dev)
     del params
+    log_phase(f"[phase 10] training {ARCH} at full width: AdamW, resume, "
+              "microbatches, CGGN")
+    ops.reset_launches()
+    train = phase_train(dev)
+    launches["train"] = ops.launches()
+    log(f"  launches {launches['train']} (no kernel on the training path)")
     for path, names in paths.items():
         for name in names:
             if launches[path][name] <= 0:
@@ -2198,6 +2420,7 @@ def main() -> int:
     print(json.dumps({"sharded": sharded, "distributed": distributed}),
           flush=True)
     print(json.dumps({"lm": lm}), flush=True)
+    print(json.dumps({"train": train}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,17 @@ The LM side: :func:`lm_params_to_torch` turns the reference's
 leading ``L`` axis) into the port's
 :class:`~repro_torch.models.transformer.Transformer`, and
 :func:`lm_cache_to_torch` a reference KV cache (``{"ring"|"full":
-AttnCache}``) into the port's.
+AttnCache}``) into the port's; :func:`lm_params_from_torch` carries the
+port's parameters back as the reference's tree of numpy arrays.
+
+The training side: :func:`adamw_state_to_torch` and
+:func:`cggn_state_to_torch` carry optimizer states across.  A flat
+parameter-space vector (the CGGN diagonal, a probe) is ordered by the
+reference's ravel of its tree (leaves by sorted key path, the layers
+stacked), by the port's :func:`~repro_torch.core.gn.flatten_like` of the
+module (``named_parameters`` order, layer by layer);
+:func:`lm_flat_to_torch` and :func:`lm_flat_from_torch` permute between
+the two.
 """
 from __future__ import annotations
 
@@ -34,10 +44,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
 from repro_torch.sparse.bell import BellMatrix
 from repro_torch.sparse.ellpack import EllpackMatrix
+from repro_torch.train.cggn import CGGNState
+from repro_torch.train.optim import AdamWState
 
 __all__ = ["stacked_to_torch", "vm_state_to_torch", "vm_state_to_numpy",
            "operator_to_torch", "cg_state_to_torch", "load_tree",
-           "lm_params_to_torch", "lm_cache_to_torch"]
+           "lm_params_to_torch", "lm_cache_to_torch", "lm_params_from_torch",
+           "lm_flat_to_torch", "lm_flat_from_torch", "adamw_state_to_torch",
+           "cggn_state_to_torch"]
 
 
 def _host_vals(a) -> np.ndarray:
@@ -153,7 +167,10 @@ def cg_state_to_torch(state, *, device=None) -> CGState:
 
 
 def _flatten(tree, prefix=""):
-    for key, val in tree.items():
+    """``(dotted path, leaf)`` of a nested dict, keys sorted at every level
+    (the reference's ravel order)."""
+    for key in sorted(tree):
+        val = tree[key]
         if hasattr(val, "items"):
             yield from _flatten(val, f"{prefix}{key}.")
         else:
@@ -169,20 +186,136 @@ def load_tree(module: torch.nn.Module, tree) -> torch.nn.Module:
     return module
 
 
-def lm_params_to_torch(params, cfg: ModelConfig, *,
-                       device=None) -> Transformer:
-    """The port's LM with the reference's parameter values: a leaf
+def _lm_state(tree, cfg: ModelConfig) -> dict:
+    """``{port name: array}`` from a reference LM tree: a leaf
     ``layers.<path>`` of shape ``[L, ...]`` becomes ``layers.<l>.<path>``
     for every layer ``l``; every other path is its own key."""
     state = {}
-    for name, a in _flatten(params):
+    for name, a in _flatten(tree):
         if name.startswith("layers."):
             stacked = np.asarray(a)
             state.update((f"layers.{l}.{name[7:]}", stacked[l])
                          for l in range(cfg.n_layers))
         else:
             state[name] = a
-    return load_tree(Transformer(cfg, device=resolve_device(device)), state)
+    return state
+
+
+def lm_params_to_torch(params, cfg: ModelConfig, *,
+                       device=None) -> Transformer:
+    """The port's LM with the reference's parameter values
+    (:func:`_lm_state`'s names)."""
+    return load_tree(Transformer(cfg, device=resolve_device(device)),
+                     _lm_state(params, cfg))
+
+
+def _host(t) -> np.ndarray:
+    """A tensor as host numpy; bf16 as its ``uint16`` bits (the port's
+    carrier)."""
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_CARRIER)
+    return t.numpy()
+
+
+def _port_names(cfg: ModelConfig) -> list:
+    """``(name, shape)`` of the port's LM parameters, in module order."""
+    return [(n, p.shape) for n, p in
+            Transformer(cfg, device="meta").named_parameters()]
+
+
+def _ref_leaves(cfg: ModelConfig) -> list:
+    """The reference's LM leaves in its ravel order (dict keys sorted at
+    every level): ``(path, stacked shape, port names)``, the port names of
+    a ``layers`` leaf in layer order."""
+    leaves = {}
+    for name, shape in _port_names(cfg):
+        if name.startswith("layers."):
+            rest = name.split(".", 2)[2]
+            leaf = leaves.setdefault(("layers", *rest.split(".")),
+                                     [(cfg.n_layers, *shape), []])
+            leaf[1].append(name)
+        else:
+            leaves[tuple(name.split("."))] = [tuple(shape), [name]]
+    return sorted(leaves.items())
+
+
+def lm_params_from_torch(params, cfg: ModelConfig) -> dict:
+    """The reference's LM tree (nested dicts of numpy arrays, the layers
+    stacked on a leading ``L`` axis) from the port's module or a
+    ``{name: tensor}`` dict of its names."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    tree = {}
+    for path, (_, names) in _ref_leaves(cfg):
+        arrs = [_host(params[n]) for n in names]
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrs) if path[0] == "layers" else arrs[0]
+    return tree
+
+
+def lm_flat_to_torch(flat, cfg: ModelConfig, *, device=None) -> torch.Tensor:
+    """A parameter-space vector in the reference's ravel order, reordered
+    as the port's ``flatten_like`` of the module (same values)."""
+    flat = np.asarray(flat)
+    pieces, ofs = {}, 0
+    for path, (shape, names) in _ref_leaves(cfg):
+        size = int(np.prod(shape))
+        block = flat[ofs:ofs + size].reshape(shape)
+        ofs += size
+        pieces.update(zip(names, block) if path[0] == "layers"
+                      else [(names[0], block)])
+    return to_device(np.concatenate([pieces[n].ravel()
+                                     for n, _ in _port_names(cfg)]),
+                     resolve_device(device))
+
+
+def lm_flat_from_torch(flat: torch.Tensor, cfg: ModelConfig) -> np.ndarray:
+    """The reverse of :func:`lm_flat_to_torch`: a port-ordered vector as
+    numpy in the reference's ravel order."""
+    names = _port_names(cfg)
+    parts = torch.split(flat.detach(), [int(np.prod(sh)) for _, sh in names])
+    tree = lm_params_from_torch({n: part.view(sh) for (n, sh), part in
+                                 zip(names, parts)}, cfg)
+    return np.concatenate([np.ravel(a) for _, a in _flatten(tree)])
+
+
+def _moments(tree, cfg, device) -> dict:
+    named = _lm_state(tree, cfg) if cfg is not None else dict(_flatten(tree))
+    return {n: to_device(a, device) for n, a in named.items()}
+
+
+def adamw_state_to_torch(state, cfg: ModelConfig = None, *,
+                         device=None) -> AdamWState:
+    """The port's :class:`~repro_torch.train.optim.AdamWState` from the
+    reference's (read by attribute: ``step``, ``m``, ``v``).  With ``cfg``
+    the moments are an LM tree and take the module's names
+    (``layers.<l>.…``); without, a tree's leaves take their key paths
+    joined with ``"."`` (:func:`~repro_torch.core.gn.param_dict`'s names).
+    bf16 moments arrive bit for bit; the step stays on the host."""
+    dev = resolve_device(device)
+    return AdamWState(step=torch.tensor(int(np.asarray(state.step)),
+                                        dtype=torch.int32),
+                      m=_moments(state.m, cfg, dev),
+                      v=_moments(state.v, cfg, dev))
+
+
+def cggn_state_to_torch(state, cfg: ModelConfig = None, *,
+                        device=None) -> CGGNState:
+    """The port's :class:`~repro_torch.train.cggn.CGGNState` from the
+    reference's (``step``, ``key``, ``diag``).  A JAX key has no torch
+    counterpart: its words are taken as the probes' seed
+    (``PRNGKey(s)`` → ``s`` for ``0 ≤ s < 2³²``).  With ``cfg`` the
+    diagonal is an LM's and is reordered as the module's
+    (:func:`lm_flat_to_torch`)."""
+    dev = resolve_device(device)
+    words = np.asarray(state.key, dtype=np.uint64).ravel()
+    seed = int(sum(int(w) << (32 * i) for i, w in enumerate(words[::-1])))
+    diag = lm_flat_to_torch(state.diag, cfg, device=dev) if cfg is not None \
+        else to_device(state.diag, dev)
+    return CGGNState(step=int(np.asarray(state.step)), seed=seed, diag=diag)
 
 
 def lm_cache_to_torch(cache, *, device=None) -> dict:

@@ -1,5 +1,5 @@
 """Family-dispatching model API — the port of :mod:`repro.models.api`, the
-surface the server (and later the trainer) consumes.
+surface the server and the trainer (:mod:`repro_torch.train`) consume.
 
 ``batch`` dicts: ``{"tokens": [B,S] int, "labels": [B,S] int}``, plus
 ``{"patch_embeds": [B,P,D]}`` for the VLM.  Only the dense family is

@@ -11,8 +11,10 @@ its parameter dict.
 
 Dense weights are kept ``[d_in, d_out]`` as in JAX.  Compute runs at the
 config's dtype (bf16 on the card) with fp32 parameters; norm statistics and
-logits are fp32.  Parameters are created with ``requires_grad=False``: the
-port serves, and its training stack (ROADMAP A.11) is not ported yet.
+logits are fp32.  Parameters are created with ``requires_grad=False``, so
+serving builds no autograd graph; the trainer (:mod:`repro_torch.train`)
+turns gradients on for its step, and the GGN operator works on detached
+tensors through ``torch.func``.
 :meth:`reset_parameters` draws from an explicit ``torch.Generator`` the
 reference's truncated normal (±2σ) at the reference's scales.
 """

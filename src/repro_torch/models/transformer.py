@@ -8,8 +8,12 @@ static tuple read per layer.  :mod:`repro_torch.convert` splits the
 reference's stacked parameters into the list.
 
 Entry points: :func:`init_params`, :func:`forward` (train/prefill),
-:func:`init_cache` and :func:`decode_step`.  The MoE family raises
-``NotImplementedError`` until ``models/moe.py`` is ported (ROADMAP A.11).
+:func:`init_cache` and :func:`decode_step`.  :func:`forward` checkpoints
+each block (``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat``
+asks and a gradient is being taken, as the reference wraps its scan body
+in ``jax.checkpoint``; serving, which takes none, runs the blocks plain.
+The MoE family raises ``NotImplementedError`` until ``models/moe.py`` is
+ported (ROADMAP A.11).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (Attention, AttnCache, attention,
@@ -80,10 +85,25 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         _dense_only(cfg)
+        self.cfg = cfg
         self.embed = Embedding(cfg.vocab, cfg.d_model, device=device)
         self.layers = nn.ModuleList(Block(cfg, device=device)
                                     for _ in range(cfg.n_layers))
         self.ln_f = make_norm(cfg.d_model, cfg.norm_kind, device=device)
+
+    def forward(self, tokens: torch.Tensor,
+                extra_embeds: Optional[torch.Tensor] = None,
+                last_only: bool = False) -> torch.Tensor:
+        """:func:`forward` with this module's config, so that
+        ``torch.func.functional_call`` can run the model on other tensors
+        (the GGN operator, :mod:`repro_torch.core.gn`).  Always without
+        remat: ``functional_call`` puts the module's own tensors back
+        before a checkpoint's backward would recompute the block, and the
+        ``torch.func`` transforms refuse the saved-tensor hooks
+        non-reentrant checkpointing uses.  Remat changes memory, not
+        arithmetic."""
+        return _forward(self, self.cfg, tokens, extra_embeds, last_only,
+                        remat=False)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
@@ -120,7 +140,16 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens [B, S] (+ optional prepended embeddings [B, P, D]) -> logits
     over the token positions only: [B, S, vocab] (fp32).  ``last_only``
     returns [B, 1, vocab]: serving prefill never materializes the
-    full-sequence logits."""
+    full-sequence logits.  Each block is checkpointed when ``cfg.remat``
+    and a gradient is being taken (grad mode on and a parameter that
+    requires one)."""
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in params.parameters())
+    return _forward(params, cfg, tokens, extra_embeds, last_only, remat)
+
+
+def _forward(params: Transformer, cfg: ModelConfig, tokens, extra_embeds,
+             last_only: bool, remat: bool) -> torch.Tensor:
     _dense_only(cfg)
     dt = dtype_of(cfg.dtype)
     x = embed(params.embed, tokens, dt)
@@ -132,8 +161,10 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     positions = torch.arange(s, device=x.device)[None, :]
     windows = layer_windows(cfg)
     for l, lp in enumerate(params.layers):
-        x = _block(lp, x, cfg, positions=positions,
-                   window=None if windows is None else windows[l])
+        kw = dict(positions=positions,
+                  window=None if windows is None else windows[l])
+        x = checkpoint(_block, lp, x, cfg, use_reentrant=False, **kw) \
+            if remat else _block(lp, x, cfg, **kw)
     x = norm(params.ln_f, x, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]

@@ -2,7 +2,13 @@
 with :mod:`repro_torch.convert` and continued in the port, ends where the
 JAX engine ends — same statuses, iterations within ±1, ``x`` within
 ``rtol=1e-4, atol=1e-6`` (the port's row dots reduce in another order, so
-the continuation is not bitwise)."""
+the continuation is not bitwise).
+
+The training side, bit for bit: the LM parameters there and back
+(``lm_params_to_torch`` / ``lm_params_from_torch``), a flat
+parameter-space vector between the two orders, and the optimizer states
+(``adamw_state_to_torch`` with bf16 moments, ``cggn_state_to_torch``).
+"""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,3 +124,94 @@ def test_jax_state_continues_in_port(scheme, layout):
     assert np.all(np.abs(got["it"] - want["it"]) <= 1)
     np.testing.assert_allclose(got["mem"][0], want["mem"][0], rtol=1e-4,
                                atol=1e-6)
+
+
+# ------------------------------------------------------------- training
+def _ref_lm():
+    import jax
+    from repro.configs import get_config as ref_get_config
+    from repro.models import init_params as ref_init_params
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3-1b").reduced()
+    return ref_init_params(ref_get_config("gemma3-1b").reduced(),
+                           jax.random.PRNGKey(0)), cfg
+
+
+def test_lm_params_round_trip():
+    import jax
+    rp, cfg = _ref_lm()
+    back = convert.lm_params_from_torch(
+        convert.lm_params_to_torch(rp, cfg, device="cpu"), cfg)
+    want = jax.tree_util.tree_flatten_with_path(rp)[0]
+    got = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+def test_lm_flat_vector_round_trip():
+    from repro.core.gn import flatten_like as ref_flatten_like
+    from repro_torch.core.gn import flatten_like
+    rp, cfg = _ref_lm()
+    ref_flat = np.asarray(ref_flatten_like(rp)[0])
+    model = convert.lm_params_to_torch(rp, cfg, device="cpu")
+    port_flat = convert.lm_flat_to_torch(ref_flat, cfg, device="cpu")
+    # the reference's ravel, reordered, is the port's ravel of the module
+    assert torch.equal(port_flat, flatten_like(model)[0])
+    np.testing.assert_array_equal(convert.lm_flat_from_torch(port_flat, cfg),
+                                  ref_flat)
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["dict", "lm"])
+def test_adamw_state_to_torch(lm):
+    import jax
+    from repro.train.optim import AdamWConfig as RefAdamWConfig
+    from repro.train.optim import adamw_init as ref_adamw_init
+    from repro_torch.core.gn import param_dict
+    if lm:
+        rp, cfg = _ref_lm()
+    else:
+        rp, cfg = {"b": jnp.ones(3), "w": {"k": jnp.ones((2, 3))}}, None
+    st = ref_adamw_init(rp, RefAdamWConfig())
+    rng = np.random.default_rng(0)
+    st = st._replace(step=jnp.asarray(7, jnp.int32),
+                     m=jax.tree_util.tree_map(lambda a: jnp.asarray(
+                         rng.standard_normal(a.shape), jnp.bfloat16), st.m),
+                     v=jax.tree_util.tree_map(lambda a: jnp.asarray(
+                         rng.random(a.shape), jnp.bfloat16), st.v))
+    pst = convert.adamw_state_to_torch(st, cfg, device="cpu")
+    assert pst.step.dtype == torch.int32 and int(pst.step) == 7
+    if lm:
+        names = [n for n, _ in convert.lm_params_to_torch(
+            rp, cfg, device="cpu").named_parameters()]
+        assert sorted(pst.m) == sorted(names)
+        back = {"m": convert.lm_params_from_torch(pst.m, cfg),
+                "v": convert.lm_params_from_torch(pst.v, cfg)}
+    else:
+        assert list(pst.m) == list(param_dict({"b": 0, "w": {"k": 0}}))
+        back = {"m": {"b": convert._host(pst.m["b"]),
+                      "w": {"k": convert._host(pst.m["w.k"])}},
+                "v": {"b": convert._host(pst.v["b"]),
+                      "w": {"k": convert._host(pst.v["w.k"])}}}
+    for k in ("m", "v"):
+        assert all(t.dtype == torch.bfloat16 for t in getattr(pst, k).values())
+        for a, b in zip(jax.tree_util.tree_leaves(back[k]),
+                        jax.tree_util.tree_leaves(getattr(st, k))):
+            np.testing.assert_array_equal(a, np.asarray(b).view(np.uint16))
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**32 - 1])
+def test_cggn_state_to_torch(seed):
+    import jax
+    from repro.train.cggn import cggn_init as ref_cggn_init
+    rp, cfg = _ref_lm()
+    st = ref_cggn_init(rp, jax.random.PRNGKey(seed))
+    n = int(st.diag.shape[0])
+    st = st._replace(step=jnp.asarray(3, jnp.int32), diag=jnp.asarray(
+        np.random.default_rng(1).random(n), jnp.float32))
+    pst = convert.cggn_state_to_torch(st, cfg, device="cpu")
+    assert pst.step == 3 and pst.seed == seed
+    np.testing.assert_array_equal(convert.lm_flat_from_torch(pst.diag, cfg),
+                                  np.asarray(st.diag))
+    flat = convert.cggn_state_to_torch(st, device="cpu")
+    np.testing.assert_array_equal(flat.diag.numpy(), np.asarray(st.diag))

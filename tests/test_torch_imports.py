@@ -32,7 +32,11 @@ print(json.dumps([len(names), leaked, len(_build._LIBS),
 #: modules the probe must find (and import) among the port's
 NEEDED = ("repro_torch.sparse.mtx", "repro_torch.core.shard",
           "repro_torch.sparse.partition", "repro_torch.distributed",
-          "repro_torch.distributed.cg_dist")
+          "repro_torch.distributed.cg_dist", "repro_torch.core.gn",
+          "repro_torch.train", "repro_torch.train.cggn",
+          "repro_torch.train.optim", "repro_torch.train.data",
+          "repro_torch.train.checkpoint", "repro_torch.train.fault",
+          "repro_torch.train.loop", "repro_torch.launch.train")
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -86,3 +90,18 @@ def test_explicit_cpu_runs_plain_path(no_card):
     assert np.isfinite(res[0].rr)
     assert {"spmv_sell", "spmv_ellpack", "spmv_ell"} <= set(K.LAUNCHES)
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0)
+
+
+def test_training_entry_points_default_to_cuda_and_refuse_without_card(
+        no_card):
+    from repro_torch.launch import train as launch
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train import DataConfig, SyntheticLM, make_train_step
+    cfg = ModelConfig(name="t", family="dense", n_layers=1, d_model=8,
+                      n_heads=1, n_kv_heads=1, d_ff=8, vocab=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SyntheticLM(DataConfig(vocab=8, seq_len=4, global_batch=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.main(["--arch", "gemma3-1b", "--steps", "1"])
