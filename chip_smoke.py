@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py        # full size, phases 0-10 (6b, 6c); no options
+    python3 chip_smoke.py        # full size, phases 0-11 (6b, 6c); no options
 
 0. The build: every kernel's registers, stack frame and spills from the
    ptxas report; each ELLPACK instantiation with a register tree
@@ -113,14 +113,15 @@
    both products at the fp32 CUDA-core peak), at S = 4,096 and at the
    prefill_32k shape per sequence (BH = 4, S = 32,768, bf16).  A time
    under 95 % of its bound (a share over 105 %) fails.
-8. gemma3-1b at full width (999,812,736 fp32 parameters drawn on the card
+8. gemma3-1b at full width, its depth cut to 6 of 26 layers (5 local and
+   the first global one; 463,026,816 fp32 parameters drawn on the card
    from a seeded generator): ``forward_logits(last_only=True)`` at B = 1,
    S = 8,192 (the Q-chunked attention), bf16, timed; then the kernel
    composed into layers 0 (local) and 5 (global) — dense → RoPE → kv
    heads repeated → ``flash_attention`` → ``wo`` — against the model's
    ``attention()`` on S = 4,096 normalized hidden states, B = 2, within
    2e-4 at fp32 and 3e-2 at bf16.
-9. ``DecodeEngine`` on gemma3-1b at full width: bf16, 8 slots, max_len
+9. ``DecodeEngine`` on gemma3-1b (6 layers): bf16, 8 slots, max_len
    1,024; 10 greedy requests of 8–64 tokens and one of 600 (the 512-slot
    ring wraps), 32 new tokens each, admitted as slots free.  Prefill
    ms/token, ms/tick, tokens/s and the tick's device-busy share
@@ -129,10 +130,10 @@
    rollout of ``forward_logits`` and the 600-token request's first token
    equals ``forward``'s argmax; the bf16 tokens' agreement with fp32 is
    printed as a rate.
-10. Training gemma3-1b at full width (999,812,736 random fp32 parameters,
-   bf16 compute, ``remat``; ``SyntheticLM`` Markov data, B = 8, S = 128),
+10. Training gemma3-1b at full width and 6 layers (463,026,816 random
+   fp32 parameters, bf16 compute, ``remat``; ``SyntheticLM`` Markov data, B = 8, S = 128),
    after the serving engine is freed: a ``Trainer`` with AdamW (bf16
-   moments) for 4 steps, checkpointed at step 2 (8.0 GB, npz + sha256)
+   moments) for 4 steps, checkpointed at step 2 (3.7 GB, npz + sha256)
    and resumed into other parameters, whose steps 2–3 give the same
    losses and every parameter the same bits as the uninterrupted run's;
    the loss and gradients of 2 strided microbatches within rel 1e-3 and
@@ -145,24 +146,56 @@
    the device-busy share (``torch.profiler``) of one AdamW step and one
    matvec.  No kernel is on this path (the reference's training path
    reaches no Pallas kernel): its launch counts stay 0.
+11. The MoE, SSM and hybrid families at full width, after phase 10 frees
+   its memory: granite-moe-1b-a400m (1,334,628,352 parameters),
+   mamba2-780m (780,148,992) and zamba2-1.2b (1,104,937,856), random
+   fp32 parameters drawn on the card from a seeded generator, bf16
+   compute.  Each: ``forward_logits(last_only=True)`` at B = 1, S = 8,192
+   (granite: 8 routing groups, capacity 320), timed; ``DecodeEngine``
+   (bf16, 8 slots, max_len 1,024) over 10 greedy requests of 8–64 tokens,
+   16 new tokens each (two slots reused): prefill ms/token, ms/tick,
+   tokens/s and the busy share of 8 profiled ticks; at fp32 a fresh
+   slot's greedy continuation of a 16-token prompt equals the
+   teacher-forced rollout of ``forward_logits`` (granite at ``capacity_factor`` E/K = 4, so no pick
+   is dropped in either grouping); a ``Trainer`` with AdamW (bf16
+   moments, lr 3e-3 from step 0) for 3 steps on one batch of B = 8,
+   S = 128: losses finite and falling or within 1 % of step 0's, ms/step,
+   tokens/s, peak memory, the busy share of one step.  The SSMs also: the
+   gradients finite at S = 128 (SSD chunk 128, where the reference's
+   backward gives NaN); a reused slot's prefill logits (16 tokens) from
+   its stale state differ from a fresh slot's (the reference's behaviour); the SSM
+   cache bytes per slot the same at max_len 1,024 and 8,192.
+   ``flash_attention`` composed into granite's layer 0 (D = 64, GQA 16:8)
+   and zamba2's shared block (D = 64, 32:32), S = 4,096, B = 2, against
+   ``attention()`` within 2e-4 at fp32 and 3e-2 at bf16 (these launches
+   count on the path); after the count is read, the kernel alone at those
+   shapes (bf16 causal) held as in phase 7 and timed beside its plain
+   version, SDPA and its bound.  Then llama4-scout-17b-a16e at full
+   width with its depth cut to 2 of 48 layers (5.2 B parameters; 48 do
+   not fit one card):
+   ``forward_logits(last_only)`` at S = 4,096 and 4 decode ticks (top-1 of
+   16 experts, d = 5,120, capacity 80 a group).
 
 Launch counters are set to 0 right before the solves of phases 2, 3, 6,
-6b and 6c and before phases 8 and 10, and read right after; each kernel
+6b and 6c and before phases 8, 10 and 11, and read right after; each kernel
 of a path must have launched on it (6b: ``spmv_sell`` and ``spmv_ellpack``; 6c runs
 the reference's plain banked-ELL product, no kernel; ``dot3`` has no
 solver path: phase 5 launches it; nor have ``spmv_ell`` at
 ``tpu_fp32``/``tpu_v1``/``tpu_v2``).  A tier
 instantiation counts under its kernel's name and, apart, under
 ``<kernel>[<scheme>]``; the ``kernels`` line lists each such entry.
-No path is cut in depth: every phase runs at the size above.
+No path is cut in depth but two LM ones: gemma3-1b's (6 of 26 layers,
+phases 8-10, so that phase 11 fits the time limit) and llama4-scout's (2
+of 48, phase 11: 48 do not fit one card).
 Any failed check raises, and so does any kernel's time under 95 % of its
 bound.  The last line is the JSON result; before the card's line come the
-sharded and distributed phases' numbers, then the LM path's, then the
-training path's.
+sharded and distributed phases' numbers, then the LM path's, the
+training path's and the families'.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -740,13 +773,13 @@ def _timed(run, args):
 
 def device_profile(fn):
     """Run ``fn`` once under torch.profiler; ``(result, wall_s, events)``
-    with one ``(kernel, device ms, count)`` per CUDA kernel name.  Only
-    kernel events are kept: operator events repeat their kernels' time."""
+    with one ``(kernel, device ms, count)`` per CUDA kernel name.  Only the
+    device activity is traced: operator events would repeat their kernels'
+    time, and sorting tens of thousands of them costs seconds a window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     import torch
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -1643,6 +1676,17 @@ BF16_TC_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 #: 2^-8 to 2^-7 of |want|), plus a floor for values near 0
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
 ARCH = "gemma3-1b"
+#: phases 8-10 run gemma3-1b at full width with its depth cut to 6 of 26
+#: layers (5 local, then the first global one: both kinds of layer, the
+#: 512-slot ring and the full cache) so the smoke keeps its time limit with
+#: phase 11; 463,026,816 parameters
+GEMMA_LAYERS, GEMMA_PARAMS = 6, 463_026_816
+
+
+def gemma_config():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ARCH), n_layers=GEMMA_LAYERS)
 #: (label, BH, S, T, D, causal, window, dtype, logit scale, tolerance);
 #: the first four are gemma3-1b's attention at S = 4,096 (B = 2 × 4 heads,
 #: the kv head repeated): global layers causal, local layers window 512.
@@ -1883,13 +1927,12 @@ def phase_lm_forward(dev):
     ``attention()`` at fp32 and bf16 compute."""
     import dataclasses
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import count_params, forward_logits, init_params
     from repro_torch.models import attention as A
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import dtype_of, layer_windows
 
-    cfg = get_config(ARCH)
+    cfg = gemma_config()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -1897,7 +1940,7 @@ def phase_lm_forward(dev):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n = count_params(params)
-    if n != cfg.param_count() or n != 999_812_736:
+    if n != cfg.param_count() or n != GEMMA_PARAMS:
         raise AssertionError(f"{ARCH}: {n} parameters, config says "
                              f"{cfg.param_count()}")
     log(f"  init_params: {n} parameters (= param_count()), "
@@ -1993,11 +2036,10 @@ def phase_engine_lm(params, dev):
     import dataclasses
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import forward_logits
     from repro_torch.serve import DecodeEngine, EngineConfig, bytes_per_slot
 
-    cfg = get_config(ARCH)
+    cfg = gemma_config()
     rng = np.random.default_rng(10)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(n))]
                for n in rng.integers(8, 65, ENGINE_PROMPTS)]
@@ -2099,7 +2141,6 @@ def phase_train(dev):
     import math
     import tempfile
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.gn import make_ggn_matvec
     from repro_torch.launch.train import CGGN_CONFIG, cggn_lm_step, lm_ggn_fns
     from repro_torch.models import count_params, init_params
@@ -2108,7 +2149,7 @@ def phase_train(dev):
                                    cggn_init, make_train_step)
     from repro_torch.train.loop import loss_and_grads
 
-    cfg = get_config(ARCH)
+    cfg = gemma_config()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                   global_batch=TRAIN_BATCH, seed=0),
@@ -2271,6 +2312,413 @@ def phase_train(dev):
     return row
 
 
+# ------------------------------------------------------------- phase 11
+#: the MoE, SSM and hybrid families at full width: parameters (the
+#: reference's ``init_params``, by ``jax.eval_shape``)
+FAMILIES = {"granite-moe-1b-a400m": 1_334_628_352,
+            "mamba2-780m": 780_148_992,
+            "zamba2-1.2b": 1_104_937_856}
+FAMILY_PROMPTS, FAMILY_NEW = 10, 16        # 10 requests of 8-64 tokens
+FAMILY_TRAIN_STEPS = 3
+#: the prompt of the stale-slot and fp32 checks: the first request's first
+#: 16 tokens (each token is a decode step of the whole model)
+FAMILY_SHORT = 16
+#: flash_attention composed into one attention layer of each family that
+#: has one: (arch, the layer: "layers.0" or "shared"), B = 2, S = 4,096
+FAMILY_COMPOSE = (("granite-moe-1b-a400m", "layers.0"),
+                  ("zamba2-1.2b", "shared"))
+#: llama4-scout at full width, its depth cut to 2 of 48 layers (5.2 B
+#: fp32 parameters; 48 would be 100.7 B, more than one card holds)
+LLAMA4, LLAMA4_LAYERS, LLAMA4_SEQ, LLAMA4_TICKS = \
+    "llama4-scout-17b-a16e", 2, 4096, 4
+
+
+def _slot_copy(cache, slot):
+    """A batch-1 copy of request ``slot``'s cache (every tensor field of
+    every stack, batch on axis 1)."""
+    import dataclasses
+    import torch
+    return {n: dataclasses.replace(c, **{
+        f.name: getattr(c, f.name).narrow(1, slot, 1).clone()
+        for f in dataclasses.fields(c)
+        if isinstance(getattr(c, f.name), torch.Tensor)})
+        for n, c in cache.items()}
+
+
+def _family_compose(arch, params, cfg, where, dev):
+    """``flash_attention`` composed into ``where``'s attention (dense →
+    RoPE → kv heads repeated → kernel → ``wo``) against the model's
+    ``attention()`` at fp32 (2e-4) and bf16 (3e-2): max |Δ| by dtype."""
+    import dataclasses
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import dtype_of
+    lp = params.shared if where == "shared" else params.layers[0]
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (COMPOSE_BATCH, COMPOSE_SEQ),
+                           generator=gen).to(dev)
+    errs = {}
+    for dt, tol in (("float32", 2e-4), ("bfloat16", 3e-2)):
+        c = dataclasses.replace(cfg, dtype=dt)
+        x = L.rmsnorm(lp.ln1, L.embed(params.embed, tokens, dtype_of(dt)),
+                      cfg.norm_eps)
+        want = A.attention(lp.attn, x, n_heads=c.n_heads,
+                           n_kv_heads=c.n_kv_heads, head_dim=c.hd,
+                           rope_theta=c.rope_theta)
+        got = _compose(lp, x, c, None)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"{arch} {where} {dt}: flash composition "
+                                 f"differs from attention() (max |Δ| {err}, "
+                                 f"tolerance {tol})")
+        errs[dt] = err
+        log(f"  {arch} {where} attention ({cfg.n_heads}:{cfg.n_kv_heads} "
+            f"heads, D={cfg.hd}) {dt}: dense → RoPE → flash_attention → wo "
+            f"≡ attention() within {tol} (max |Δ| {err:.3e}; |y| max "
+            f"{float(want.abs().max()):.3e})")
+        del x, want, got
+    return errs
+
+
+def phase_families_flash(dev) -> dict:
+    """The kernel alone at the shapes phase 11 composed it into (bf16
+    causal, B = 2 × the heads, S = 4,096, D = 64): held against its plain
+    version as phase 7 holds it, and timed beside the plain version, SDPA
+    and its bound.  Outside the path's launch count."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as FA
+    rows = {}
+    for arch, _ in FAMILY_COMPOSE:
+        cfg = get_config(arch)
+        bh = COMPOSE_BATCH * cfg.n_heads
+        q, k, v = _qkv(bh, COMPOSE_SEQ, COMPOSE_SEQ, cfg.hd, torch.bfloat16,
+                       1, dev, 95)
+        kw = dict(causal=True, window=None)
+        err, wide_err = _flash_held(f"{arch} bf16", q, k, v, kw, 2e-5)
+        b = _flash_bound(q, k, v, True, None)
+        t_k = median_ms(lambda: FA.flash_attention(q, k, v, **kw))
+        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                      reps=3)
+        t_l = median_ms(_sdpa(q, k, v, True, None))
+        share = _share(f"flash_attention {arch}", b["bound_ms"], t_k)
+        rows[arch] = dict(shape=f"BH={bh} S=T={COMPOSE_SEQ} D={cfg.hd} "
+                          "bf16 causal", max_abs_err=err, wide_err=wide_err,
+                          ms=t_k, plain_ms=t_p, library_ms=t_l, share=share,
+                          **b)
+        log(f"  flash {rows[arch]['shape']} ({arch}): "
+            f"{_held_text(2e-5, wide_err)} (max |Δ| {err:.3e}); {t_k:.4f} ms "
+            f"(plain {t_p:.3f}, SDPA {t_l:.4f}); bound {b['bound_ms']:.4f} "
+            f"ms by {b['bound_by']} ({share:.1%})")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _family_serve(arch, params, cfg, dev):
+    """``DecodeEngine``, bf16: 10 greedy requests of 8-64 tokens on 8 slots
+    (two reused), 16 new tokens each, timed and one window of ticks
+    profiled; for an SSM, a reused slot's prefill from its stale state
+    against a fresh slot's.  Then at fp32 (a MoE with capacity_factor E/K,
+    so no pick is dropped in either grouping): a fresh slot's greedy
+    continuation equals the teacher-forced rollout of ``forward_logits``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import forward_logits
+    from repro_torch.models import init_cache
+    from repro_torch.serve import DecodeEngine, EngineConfig, bytes_per_slot
+    from repro_torch.serve.kv_cache import cache_bytes
+
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(n))]
+               for n in rng.integers(8, 65, FAMILY_PROMPTS)]
+    ecfg = EngineConfig(device=str(dev))
+    eng = DecodeEngine(cfg, params, ecfg)
+    outs, t = _drive(eng, prompts, FAMILY_NEW)
+    if sorted(outs) != list(range(len(prompts))) or any(
+            len(o) != FAMILY_NEW for o in outs.values()):
+        raise AssertionError(f"{arch} engine: outputs "
+                             f"{[len(o) for o in outs.values()]}")
+    n_prompt = sum(len(p) for p in prompts)
+    row = dict(requests=len(prompts), prompt_tokens=n_prompt,
+               prefill_ms_per_token=t["prefill_s"] / n_prompt * 1e3,
+               ms_per_tick=t["tick_s"] / t["ticks"] * 1e3, ticks=t["ticks"],
+               decode_tokens_per_s=sum(len(o) - 1 for o in outs.values())
+               / t["tick_s"],
+               tokens_per_s=sum(map(len, outs.values()))
+               / (t["prefill_s"] + t["tick_s"]),
+               cache_bytes_per_slot=bytes_per_slot(cfg, ecfg.max_len))
+    if cfg.ssm is not None:
+        # slot 0 served two requests and ticked frozen since: its state is
+        # stale; the reference prefills a reused slot from it too
+        prompt = torch.tensor(prompts[0][:FAMILY_SHORT], device=dev)
+        stale = eng._prefill(_slot_copy(eng.cache, 0), prompt)[2]
+        fresh = eng._prefill(init_cache(cfg, 1, ecfg.max_len,
+                                        torch.bfloat16, device=dev),
+                             prompt)[2]
+        gap = float((stale - fresh).abs().max())
+        if not gap > 0:
+            raise AssertionError(f"{arch}: a reused slot's prefill equals a "
+                                 "fresh slot's; the reference's keeps the "
+                                 "stale state")
+        ssm_bytes = [cache_bytes({"ssm": init_cache(
+            cfg, 1, m, torch.bfloat16, device="meta")["ssm"]})
+            for m in (ecfg.max_len, 8 * ecfg.max_len)]
+        if ssm_bytes[0] != ssm_bytes[1]:
+            raise AssertionError(f"{arch}: SSM cache bytes {ssm_bytes} "
+                                 "depend on max_len")
+        row.update(stale_slot_logit_gap=gap, ssm_bytes_per_slot=ssm_bytes[0])
+        log(f"  reused slot 0: prefill logits from its stale SSM state differ "
+            f"from a fresh slot's by up to {gap:.3f} (as the reference's); "
+            f"SSM cache {ssm_bytes[0]} B/slot at max_len {ecfg.max_len} and "
+            f"{8 * ecfg.max_len}")
+    for p in prompts[:ecfg.batch_slots]:
+        eng.add_request(p[:8], max_new=FAMILY_NEW)
+    n_prof = 8
+    _, wall, ev = device_profile(lambda: [eng.step() for _ in range(n_prof)])
+    busy = sum(ms for _, ms, _ in ev) / n_prof
+    prof_tick = wall / n_prof * 1e3
+    row.update(busy_ms_per_tick=busy, busy_share=busy / prof_tick,
+               profiled_ms_per_tick=prof_tick,
+               kernels_per_tick=sum(c for _, _, c in ev) / n_prof)
+    log(f"  bf16 engine: {len(prompts)} requests ({n_prompt} prompt tokens), "
+        f"{t['ticks']} ticks of {ecfg.batch_slots} slots: prefill "
+        f"{row['prefill_ms_per_token']:.2f} ms/token, "
+        f"{row['ms_per_tick']:.2f} ms/tick = "
+        f"{row['decode_tokens_per_s']:.0f} decode tokens/s "
+        f"({row['tokens_per_s']:.0f} tokens/s with prefill); {n_prof} "
+        f"profiled ticks: device busy {busy:.2f} of {prof_tick:.2f} ms/tick "
+        f"= {busy / prof_tick:.1%}, {row['kernels_per_tick']:.0f} "
+        f"kernels/tick; cache {row['cache_bytes_per_slot']} B/slot "
+        f"[{time.perf_counter() - _START:.0f} s]")
+    for key, ms, c in sorted(ev, key=lambda e: -e[1])[:4]:
+        log(f"      {ms:9.2f} ms {c:6d}x  {key[:80]}")
+    del eng
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    if cfg.moe is not None:
+        cfg32 = dataclasses.replace(cfg32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    eng32 = DecodeEngine(cfg32, params, EngineConfig(
+        batch_slots=2, cache_dtype="float32", device=str(dev)))
+    outs32, _ = _drive(eng32, [prompts[0][:FAMILY_SHORT]], FP32_CONTINUATION)
+    seq, want = list(prompts[0][:FAMILY_SHORT]), []
+    for _ in range(FP32_CONTINUATION):
+        lg = forward_logits(params, cfg32, {"tokens": torch.tensor(
+            [seq], device=dev)}, last_only=True)
+        want.append(int(torch.argmax(lg[0, -1])))
+        seq.append(want[-1])
+    if outs32[0] != want:
+        raise AssertionError(f"{arch} fp32 engine {outs32[0]} != rollout "
+                             f"{want}")
+    cap = ", capacity_factor E/K" if cfg.moe else ""
+    log(f"  fp32 engine (fresh slot{cap}): {FP32_CONTINUATION}-token greedy "
+        f"continuation of a {FAMILY_SHORT}-token prompt == teacher-forced "
+        f"rollout [{time.perf_counter() - _START:.0f} s]")
+    return row
+
+
+class _OneBatch:
+    """A ``Trainer``'s data that serves one batch of ``data`` at every
+    step."""
+
+    def __init__(self, data):
+        self.data = data
+        self.batch = data.batch_at(0)
+
+    def batch_at(self, step):
+        return self.batch
+
+    def cursor(self, step):
+        return self.data.cursor(0)
+
+
+def _family_train(arch, cfg, dev, seed):
+    """A ``Trainer`` with AdamW (bf16 moments, lr 3e-3 from step 0), 3
+    steps on one batch of B = 8, S = 128, from fresh parameters: finite
+    losses that fall or stay within 1 % after step 0; the gradients finite
+    (for the SSMs at chunk 128, where the reference's backward gives NaN);
+    ms/step, tokens/s, peak memory and the busy share of one profiled
+    step."""
+    import math
+    import tempfile
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
+                                   Trainer, TrainerConfig, adamw_init,
+                                   make_train_step)
+    from repro_torch.train.loop import loss_and_grads
+
+    data = _OneBatch(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=0), device=dev))
+    opt = AdamWConfig(lr=3e-3)                        # launcher's default
+    # the launcher's lr from step 0, on one batch: the default schedule's
+    # warmup (lr 0, 3e-5, 6e-5) moves the loss less than one batch differs
+    # from the next, and the check is that the steps train
+    step_fn = make_train_step(cfg, opt=opt, schedule=lambda step: torch.tensor(
+        opt.lr), device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                         device=dev)
+    row = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    if cfg.ssm is not None:
+        chunk = min(cfg.ssm.chunk, TRAIN_SEQ)
+        _, g = loss_and_grads(params, cfg, data.batch_at(FAMILY_TRAIN_STEPS))
+        bad = [n for n, t in g.items() if not bool(torch.isfinite(t).all())]
+        del g
+        if chunk != 128 or bad:
+            raise AssertionError(f"{arch}: chunk {chunk}, non-finite "
+                                 f"gradients {bad[:4]}")
+        row["chunk"] = chunk
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(cfg, data, step_fn, params, adamw_init(params, opt),
+                     TrainerConfig(total_steps=FAMILY_TRAIN_STEPS,
+                                   ckpt_every=0, ckpt_dir=tmp, log_every=0),
+                     torch.Generator().manual_seed(seed))
+        tr.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in tr.metrics_log]
+    step_ms = [m["step_time_s"] * 1e3 for m in tr.metrics_log]
+    if not all(math.isfinite(v) for v in losses) or any(
+            v > losses[0] * 1.01 for v in losses[1:]):
+        raise AssertionError(f"{arch} AdamW losses {losses}")
+    ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    batch = data.batch_at(FAMILY_TRAIN_STEPS)
+    _, wall, ev = device_profile(lambda: step_fn(
+        tr.params, tr.opt_state, batch, FAMILY_TRAIN_STEPS))
+    busy = sum(t for _, t, _ in ev)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    row.update(losses=losses, step_ms=step_ms, ms_per_step=ms,
+               tokens_per_s=tokens / ms * 1e3, peak_bytes=peak,
+               busy_ms=busy, busy_share=busy / ms,
+               busy_share_profiled=busy / (wall * 1e3),
+               kernels=sum(c for _, _, c in ev))
+    log(f"  AdamW {FAMILY_TRAIN_STEPS} steps B={TRAIN_BATCH} S={TRAIN_SEQ}"
+        f"{' (SSD chunk 128: gradients finite)' if cfg.ssm else ''}: losses "
+        f"{[round(v, 4) for v in losses]}; steps "
+        f"{[round(v, 1) for v in step_ms]} ms → {ms:.1f} ms/step = "
+        f"{tokens / ms * 1e3:.0f} tokens/s; peak {_gib(peak)}; one profiled "
+        f"step: device busy {busy:.1f} ms = {busy / ms:.1%}, "
+        f"{row['kernels']} kernels [{time.perf_counter() - _START:.0f} s]")
+    del tr, params
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_families(dev, card):
+    """The MoE, SSM and hybrid families at full width (random fp32
+    parameters drawn on the card from a seeded generator, bf16 compute):
+    for each, ``forward_logits(last_only)`` at B = 1, S = 8,192 timed, the
+    ``DecodeEngine`` checks of :func:`_family_serve`, ``flash_attention``
+    composed into its attention layer where it has one, and 3 AdamW steps;
+    then llama4-scout at full width and 2 layers: the forward at S = 4,096
+    and 4 decode ticks."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, forward_logits, init_params
+    from repro_torch.serve import DecodeEngine, EngineConfig
+
+    compose = dict(FAMILY_COMPOSE)
+    rows = {"card": card}
+    for i, (arch, n_want) in enumerate(FAMILIES.items()):
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator(dev).manual_seed(20 + i),
+                             device=dev)
+        n = count_params(params)
+        if n != n_want:
+            raise AssertionError(f"{arch}: {n} parameters, the reference's "
+                                 f"init_params {n_want}")
+        gen = torch.Generator().manual_seed(13)
+        tokens = torch.randint(0, cfg.vocab, (1, LM_SEQ),
+                               generator=gen).to(dev)
+        def fwd():
+            return forward_logits(params, cfg, {"tokens": tokens},
+                                  last_only=True)
+        torch.cuda.reset_peak_memory_stats()
+        logits = fwd()
+        torch.cuda.synchronize()
+        if logits.shape != (1, 1, cfg.vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch} forward_logits: shape "
+                                 f"{tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        walls = [_single(fwd)[1] for _ in range(3)]
+        row = dict(params=n, forward_ms=min(walls) * 1e3,
+                   forward_tokens_per_s=LM_SEQ / min(walls),
+                   forward_peak_bytes=torch.cuda.max_memory_allocated())
+        if cfg.moe is not None:
+            row["group_capacity"] = math.ceil(
+                1024 * cfg.moe.top_k * cfg.moe.capacity_factor
+                / cfg.moe.n_experts)
+        log(f"[{arch}, {time.perf_counter() - _START:.0f} s] {n} "
+            f"parameters; forward_logits(last_only) B=1 "
+            f"S={LM_SEQ} {cfg.dtype}: {row['forward_ms']:.1f} ms (of "
+            f"{[round(w * 1e3, 1) for w in walls]}) = "
+            f"{row['forward_tokens_per_s']:.0f} tokens/s; peak "
+            f"{_gib(row['forward_peak_bytes'])}")
+        del logits
+        if arch in compose:
+            row["compose_err"] = _family_compose(arch, params, cfg,
+                                                 compose[arch], dev)
+        row["engine"] = _family_serve(arch, params, cfg, dev)
+        del params
+        row["train"] = _family_train(arch, cfg, dev, 30 + i)
+        rows[arch] = row
+
+    cfg = dataclasses.replace(get_config(LLAMA4), n_layers=LLAMA4_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(40),
+                         device=dev)
+    n = count_params(params)
+    gen = torch.Generator().manual_seed(14)
+    tokens = torch.randint(0, cfg.vocab, (1, LLAMA4_SEQ),
+                           generator=gen).to(dev)
+    def fwd():
+        return forward_logits(params, cfg, {"tokens": tokens},
+                              last_only=True)
+    logits = fwd()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{LLAMA4}: forward_logits not finite")
+    walls = [_single(fwd)[1] for _ in range(2)]
+    del logits
+    eng = DecodeEngine(cfg, params, EngineConfig(batch_slots=2, max_len=64,
+                                                 device=str(dev)))
+    for _ in range(2):
+        eng.add_request([int(t) for t in torch.randint(
+            1, cfg.vocab, (8,), generator=gen)], max_new=LLAMA4_TICKS + 1)
+    _, tick_s = _single(lambda: [eng.step() for _ in range(LLAMA4_TICKS)])
+    if any(len(o) != LLAMA4_TICKS + 1 for o in eng.outputs):
+        raise AssertionError(f"{LLAMA4} engine: {eng.outputs}")
+    rows[LLAMA4] = dict(
+        layers=LLAMA4_LAYERS, params=n, forward_ms=min(walls) * 1e3,
+        forward_tokens_per_s=LLAMA4_SEQ / min(walls),
+        ms_per_tick=tick_s / LLAMA4_TICKS * 1e3,
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        group_capacity=math.ceil(1024 * cfg.moe.top_k
+                                 * cfg.moe.capacity_factor
+                                 / cfg.moe.n_experts))
+    log(f"[{LLAMA4}, {time.perf_counter() - _START:.0f} s] "
+        f"{LLAMA4_LAYERS} of 48 layers at full width, {n} "
+        f"parameters; forward_logits(last_only) B=1 S={LLAMA4_SEQ}: "
+        f"{min(walls) * 1e3:.1f} ms; {LLAMA4_TICKS} decode ticks of 2 slots "
+        f"{tick_s / LLAMA4_TICKS * 1e3:.1f} ms each (top-1 of 16 experts, "
+        f"cap {rows[LLAMA4]['group_capacity']} a 1,024-token group); peak "
+        f"{_gib(rows[LLAMA4]['peak_bytes'])}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if len(sys.argv) > 1:
@@ -2317,7 +2765,7 @@ def main() -> int:
              "single": ("spmv_ell", "dot", "phase2", "phase3",
                         "spmv_ell[tpu_v3]"),
              "sharded": ("spmv_sell", "spmv_ellpack"),
-             "lm": ("flash_attention",)}
+             "lm": ("flash_attention",), "families": ("flash_attention",)}
     launches = {}
     log_phase("[phase 1] kernels against their plain versions")
     timed = phase_kernels(bag, dev)
@@ -2365,20 +2813,30 @@ def main() -> int:
     log_phase(f"[phase 7] flash_attention against its plain version ({ARCH} "
               "shapes)")
     timed["flash_attention"], flash_timed = phase_flash(dev)
-    log_phase(f"[phase 8] {ARCH} at full width: forward, kernel composition")
+    log_phase(f"[phase 8] {ARCH} at full width, {GEMMA_LAYERS} of 26 layers: "
+              "forward, kernel composition")
     ops.reset_launches()
     params, lm = phase_lm_forward(dev)
     launches["lm"] = ops.launches()
     log(f"  launches {launches['lm']}")
-    log_phase(f"[phase 9] DecodeEngine on {ARCH} at full width")
+    log_phase(f"[phase 9] DecodeEngine on {ARCH} at full width, "
+              f"{GEMMA_LAYERS} of 26 layers")
     lm["engine"] = phase_engine_lm(params, dev)
     del params
-    log_phase(f"[phase 10] training {ARCH} at full width: AdamW, resume, "
+    log_phase(f"[phase 10] training {ARCH} at full width, {GEMMA_LAYERS} of "
+              "26 layers: AdamW, resume, "
               "microbatches, CGGN")
     ops.reset_launches()
     train = phase_train(dev)
     launches["train"] = ops.launches()
     log(f"  launches {launches['train']} (no kernel on the training path)")
+    log_phase("[phase 11] the MoE, SSM and hybrid families at full width "
+              f"({', '.join(FAMILIES)}; {LLAMA4} at {LLAMA4_LAYERS} layers)")
+    ops.reset_launches()
+    families = phase_families(dev, card)
+    launches["families"] = ops.launches()
+    log(f"  launches {launches['families']}")
+    families["flash_attention"] = phase_families_flash(dev)
     for path, names in paths.items():
         for name in names:
             if launches[path][name] <= 0:
@@ -2421,6 +2879,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"families": families}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,10 @@ one mid-flight state can be fed to both packages.
 
 The LM side: :func:`lm_params_to_torch` turns the reference's
 ``init_params`` pytree (nested dicts of arrays, the layers stacked on a
-leading ``L`` axis) into the port's
-:class:`~repro_torch.models.transformer.Transformer`, and
-:func:`lm_cache_to_torch` a reference KV cache (``{"ring"|"full":
-AttnCache}``) into the port's; :func:`lm_params_from_torch` carries the
+leading ``L`` axis) into the port's module of the config's family
+(:func:`~repro_torch.models.api.model_class`), and
+:func:`lm_cache_to_torch` a reference cache (``{name: AttnCache |
+SSMCache}``) into the port's; :func:`lm_params_from_torch` carries the
 port's parameters back as the reference's tree of numpy arrays.
 
 The training side: :func:`adamw_state_to_torch` and
@@ -39,9 +39,10 @@ from repro_torch.core.vm import BatchedVMState
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels.ops import EllKernelOperator
 from repro_torch.kernels.spmv import sell_table
+from repro_torch.models.api import model_class
 from repro_torch.models.attention import AttnCache
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.ssm import SSMCache
 from repro_torch.sparse.bell import BellMatrix
 from repro_torch.sparse.ellpack import EllpackMatrix
 from repro_torch.train.cggn import CGGNState
@@ -189,7 +190,8 @@ def load_tree(module: torch.nn.Module, tree) -> torch.nn.Module:
 def _lm_state(tree, cfg: ModelConfig) -> dict:
     """``{port name: array}`` from a reference LM tree: a leaf
     ``layers.<path>`` of shape ``[L, ...]`` becomes ``layers.<l>.<path>``
-    for every layer ``l``; every other path is its own key."""
+    for every layer ``l``; every other path (``embed``, ``ln_f``, the
+    hybrid's unstacked ``shared.*``) is its own key."""
     state = {}
     for name, a in _flatten(tree):
         if name.startswith("layers."):
@@ -202,10 +204,10 @@ def _lm_state(tree, cfg: ModelConfig) -> dict:
 
 
 def lm_params_to_torch(params, cfg: ModelConfig, *,
-                       device=None) -> Transformer:
+                       device=None) -> torch.nn.Module:
     """The port's LM with the reference's parameter values
     (:func:`_lm_state`'s names)."""
-    return load_tree(Transformer(cfg, device=resolve_device(device)),
+    return load_tree(model_class(cfg)(cfg, device=resolve_device(device)),
                      _lm_state(params, cfg))
 
 
@@ -221,7 +223,7 @@ def _host(t) -> np.ndarray:
 def _port_names(cfg: ModelConfig) -> list:
     """``(name, shape)`` of the port's LM parameters, in module order."""
     return [(n, p.shape) for n, p in
-            Transformer(cfg, device="meta").named_parameters()]
+            model_class(cfg)(cfg, device="meta").named_parameters()]
 
 
 def _ref_leaves(cfg: ModelConfig) -> list:
@@ -319,9 +321,12 @@ def cggn_state_to_torch(state, cfg: ModelConfig = None, *,
 
 
 def lm_cache_to_torch(cache, *, device=None) -> dict:
-    """The port's stacked KV caches from the reference's
-    (``{name: AttnCache}``, read by attribute: ``k``, ``v``, ``ring``)."""
+    """The port's stacked caches from the reference's (``{name: AttnCache
+    | SSMCache}``, read by attribute: ``k``, ``v``, ``ring``, or ``conv``,
+    ``ssm``); bf16 leaves arrive bit for bit."""
     dev = resolve_device(device)
-    return {name: AttnCache(to_device(c.k, dev), to_device(c.v, dev),
-                            bool(c.ring))
+    return {name: SSMCache(to_device(c.conv, dev), to_device(c.ssm, dev))
+            if hasattr(c, "conv")
+            else AttnCache(to_device(c.k, dev), to_device(c.v, dev),
+                           bool(c.ring))
             for name, c in cache.items()}

@@ -102,7 +102,7 @@ def make_ggn_matvec(loss_logits_fn: Callable, logits_fn: Callable,
     forward's saved activations for every matvec of the step.  The model
     must run without activation checkpointing here: ``torch.func`` refuses
     the saved-tensor hooks of ``torch.utils.checkpoint``
-    (:meth:`repro_torch.models.transformer.Transformer.forward` runs so).
+    (``Transformer.forward`` and ``Hybrid.forward`` run so).
     """
     primals = param_dict(params)
     ravel, unravel, n = _ravel_unravel(primals)

@@ -7,6 +7,9 @@ Example::
         --full --requests 6 --max-new 24
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --device cpu                  # the reduced config on the CPU
+
+Every ported family serves: dense, MoE (``granite-moe-1b-a400m``), SSM
+(``mamba2-780m``) and hybrid (``zamba2-1.2b``); encoder-decoder raises.
 """
 from __future__ import annotations
 

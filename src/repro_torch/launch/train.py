@@ -1,7 +1,9 @@
 """Training launcher — ``--arch <id> --optimizer adamw|cggn`` (the port of
 :mod:`repro.launch.train`, plus ``--device``).
 
-The reduced config by default; ``--full`` selects the published one.
+The reduced config by default; ``--full`` selects the published one.  The
+dense, MoE, SSM and hybrid families train (``--arch granite-moe-1b-a400m
+--optimizer cggn``, ``--arch mamba2-780m``, ...).
 
 Example::
 

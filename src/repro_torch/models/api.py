@@ -2,10 +2,11 @@
 surface the server and the trainer (:mod:`repro_torch.train`) consume.
 
 ``batch`` dicts: ``{"tokens": [B,S] int, "labels": [B,S] int}``, plus
-``{"patch_embeds": [B,P,D]}`` for the VLM.  Only the dense family is
-ported: the ``ssm``/``hybrid``/``encdec`` families (and MoE, in
-:mod:`~repro_torch.models.transformer`) raise ``NotImplementedError``
-until they are (ROADMAP A.11).
+``{"patch_embeds": [B,P,D]}`` for the VLM.  The decoder-only families
+(dense, MoE, VLM) run through :mod:`~repro_torch.models.transformer`, the
+``ssm`` and ``hybrid`` families through :mod:`~repro_torch.models.hybrid`;
+the encoder-decoder family raises ``NotImplementedError`` until it is
+ported (ROADMAP A.9.3).
 """
 from __future__ import annotations
 
@@ -13,23 +14,29 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_params", "forward_logits", "loss_fn", "init_cache",
-           "decode_step", "count_params"]
+           "decode_step", "count_params", "model_class"]
 
 
 def _mod(cfg: ModelConfig):
     if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(models/ssm.py, hybrid.py; ROADMAP A.11)")
+        return hybrid
     if cfg.encoder is not None:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family is not ported yet "
-            "(models/encdec.py; ROADMAP A.11)")
+            "(models/encdec.py; ROADMAP A.9.3)")
     return transformer
+
+
+def model_class(cfg: ModelConfig) -> type:
+    """The ``nn.Module`` that holds ``cfg``'s parameters
+    (:class:`~repro_torch.models.transformer.Transformer` or
+    :class:`~repro_torch.models.hybrid.Hybrid`): built as
+    ``model_class(cfg)(cfg, device=...)``, not drawn."""
+    return hybrid.Hybrid if _mod(cfg) is hybrid else transformer.Transformer
 
 
 def init_params(cfg: ModelConfig,

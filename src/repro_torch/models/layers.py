@@ -28,7 +28,8 @@ from torch import nn
 
 __all__ = ["Dense", "RMSNorm", "LayerNorm", "Embedding", "MLP", "MLPGelu",
            "dense", "rmsnorm", "layernorm", "norm", "make_norm", "embed",
-           "unembed", "mlp", "mlp_gelu", "ffn", "rope_freqs", "apply_rope"]
+           "unembed", "mlp", "mlp_gelu", "ffn", "rope_freqs", "apply_rope",
+           "draw_parameters"]
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -44,6 +45,21 @@ def _truncated_normal_(t: torch.Tensor, scale: float,
     times ``scale``, drawn in place."""
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t.mul_(scale)
+
+
+def draw_parameters(model: nn.Module,
+                    generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Draw every parameter of ``model`` in place (each module's
+    :meth:`reset_parameters`) from ``generator`` (default: seed 0 on the
+    model's device), and return the model."""
+    if generator is None:
+        dev = next(model.parameters()).device
+        generator = torch.Generator(dev).manual_seed(0)
+    with torch.no_grad():
+        for m in model.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+    return model
 
 
 # --------------------------------------------------------------------- dense

@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense family — the port of
-:mod:`repro.models.transformer` (dense / GQA / SWA / local:global).
+"""Decoder-only LM — the port of :mod:`repro.models.transformer` (dense /
+GQA / SWA / local:global / MoE / VLM).
 
 The reference stacks its layers on a leading ``L`` axis and runs them with
 ``lax.scan``; here the layers are an ``nn.ModuleList`` walked by a Python
@@ -12,8 +12,8 @@ Entry points: :func:`init_params`, :func:`forward` (train/prefill),
 each block (``torch.utils.checkpoint``, non-reentrant) when ``cfg.remat``
 asks and a gradient is being taken, as the reference wraps its scan body
 in ``jax.checkpoint``; serving, which takes none, runs the blocks plain.
-The MoE family raises ``NotImplementedError`` until ``models/moe.py`` is
-ported (ROADMAP A.11).
+A MoE config's blocks hold :class:`~repro_torch.models.moe.MoE` in place
+of the MLP (:func:`~repro_torch.models.moe.moe_ffn` at their FFN site).
 """
 from __future__ import annotations
 
@@ -27,8 +27,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import (Attention, AttnCache, attention,
                                           attn_decode)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (MLP, Embedding, MLPGelu, embed, ffn,
+from repro_torch.models.layers import (MLP, Embedding, MLPGelu,
+                                       draw_parameters, embed, ffn,
                                        make_norm, norm, unembed)
+from repro_torch.models.moe import MoE, moe_ffn
 
 __all__ = ["Transformer", "Block", "init_params", "forward", "init_cache",
            "decode_step", "layer_windows", "FULL_WINDOW", "dtype_of"]
@@ -57,15 +59,9 @@ def layer_windows(cfg: ModelConfig) -> Optional[tuple]:
     return None
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE family is not ported yet (models/moe.py, "
-            "ROADMAP A.11)")
-
-
 class Block(nn.Module):
-    """Pre-norm block: ``h = x + attn(ln1 x)``; ``h + mlp(ln2 h)``."""
+    """Pre-norm block: ``h = x + attn(ln1 x)``; ``h + ffn(ln2 h)``, the FFN
+    ``moe`` for a MoE config, else ``mlp``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -73,8 +69,16 @@ class Block(nn.Module):
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.hd, bias=cfg.qkv_bias, device=device)
         self.ln2 = make_norm(cfg.d_model, cfg.norm_kind, device=device)
-        self.mlp = (MLPGelu if cfg.mlp_kind == "gelu" else MLP)(
-            cfg.d_model, cfg.d_ff, device=device)
+        if cfg.moe is not None:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.moe, device=device)
+        else:
+            self.mlp = (MLPGelu if cfg.mlp_kind == "gelu" else MLP)(
+                cfg.d_model, cfg.d_ff, device=device)
+
+
+def _ffn(lp: Block, z, cfg: ModelConfig):
+    return moe_ffn(lp.moe, z, cfg.moe) if cfg.moe is not None \
+        else ffn(lp.mlp, z)
 
 
 class Transformer(nn.Module):
@@ -84,7 +88,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        _dense_only(cfg)
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab, cfg.d_model, device=device)
         self.layers = nn.ModuleList(Block(cfg, device=device)
@@ -114,14 +117,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``jax.random`` draws; to compare the two packages, carry the JAX
     parameters across with :func:`repro_torch.convert.lm_params_to_torch`."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
-    if generator is None:
-        generator = torch.Generator(dev).manual_seed(0)
-    with torch.no_grad():
-        for m in model.modules():
-            if hasattr(m, "reset_parameters"):
-                m.reset_parameters(generator)
-    return model
+    return draw_parameters(Transformer(cfg, device=dev), generator)
 
 
 def _block(lp: Block, x, cfg: ModelConfig, *, positions, window):
@@ -131,7 +127,7 @@ def _block(lp: Block, x, cfg: ModelConfig, *, positions, window):
                       positions=positions, window=window, causal=True,
                       rope_theta=cfg.rope_theta)
     z = norm(lp.ln2, h, cfg.norm_eps)
-    return h + ffn(lp.mlp, z)
+    return h + _ffn(lp, z, cfg)
 
 
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
@@ -150,7 +146,6 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _forward(params: Transformer, cfg: ModelConfig, tokens, extra_embeds,
              last_only: bool, remat: bool) -> torch.Tensor:
-    _dense_only(cfg)
     dt = dtype_of(cfg.dtype)
     x = embed(params.embed, tokens, dt)
     n_prefix = 0
@@ -187,7 +182,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     Windowed layers get ring buffers of the window length; gemma3's mixed
     ring/full stack is split into two stacks (``"ring"``, ``"full"``) to
     stay rectangular."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     windows = layer_windows(cfg)
     if windows is None:
@@ -237,7 +231,6 @@ def decode_step(params: Transformer, cfg: ModelConfig,
     """One decode step.  token [B] int; pos an int or an int tensor of
     shape () or [B].  Returns (logits [B, vocab] fp32, cache), the cache
     updated in place (see :func:`~repro_torch.models.attention.attn_decode`)."""
-    _dense_only(cfg)
     dt = dtype_of(cfg.dtype)
     h = embed(params.embed, token[:, None], dt)     # [B, 1, D]
     pos = torch.as_tensor(pos, device=h.device)     # once, not per layer
@@ -248,6 +241,6 @@ def decode_step(params: Transformer, cfg: ModelConfig,
                            rope_theta=cfg.rope_theta)
         h = h + y
         z = norm(lp.ln2, h, cfg.norm_eps)
-        h = h + ffn(lp.mlp, z)
+        h = h + _ffn(lp, z, cfg)
     h = norm(params.ln_f, h, cfg.norm_eps)
     return unembed(params.embed, h)[:, 0], cache

@@ -6,7 +6,16 @@ A fixed pool of ``batch_slots`` request slots decodes in lock-step (one
 each carries its own position, so a new request can join mid-flight.
 Admission prefills the prompt into the slot's cache token by token through
 a batch-1 view (the reference's ``lax.scan`` of decode steps; the other
-slots are untouched), then the slot joins the shared tick.
+slots are untouched), then the slot joins the shared tick.  Every family
+the models port serves through it (dense, MoE, SSM, hybrid).
+
+The prefill starts from the slot's current content, as the reference's
+does: for attention that is harmless (the positions are rewritten), but a
+reused slot's SSM state (conv taps, recurrent state) is the finished
+request's, advanced by every tick since, and the new request continues
+from it (a reference fault, kept: ROADMAP C).  Frozen slots take part in
+every tick, so in a MoE tick their tokens route and count against the
+experts' capacity (the group is all ``batch_slots``), as in the reference.
 
 Sampling: greedy, or temperature sampling from a ``torch.Generator`` seeded
 with ``EngineConfig.seed`` (the same seed gives the same tokens; the draws

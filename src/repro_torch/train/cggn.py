@@ -76,6 +76,14 @@ def cggn_init(params, seed: int) -> CGGNState:
                      diag=torch.ones(n, dtype=torch.float32, device=dev))
 
 
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """‖v‖ in fp32 as ``sqrt(v·v)``: on the CPU ``torch.linalg.vector_norm``
+    sums fp32 squares without a cascade (‖g‖ of 3.5 M entries 3e-4 low);
+    ``dot`` keeps 1e-6, and copies nothing."""
+    v = v.float()
+    return torch.sqrt(torch.dot(v, v))
+
+
 @torch.no_grad()
 def _apply(params, delta: torch.Tensor, lr: float) -> None:
     """``θ ← θ + lr·δ``, parameter by parameter, in place."""
@@ -104,7 +112,7 @@ def cggn_update(params, state: CGGNState, *, loss_logits_fn, logits_fn,
     gflat, _, _ = flatten_like(grads)
     del grads
     gflat = gflat.to(scheme.vector_dtype)
-    grad_norm = torch.linalg.vector_norm(gflat.float())
+    grad_norm = _norm(gflat)
 
     matvec_tree, n = make_ggn_matvec(loss_logits_fn, logits_fn, primals,
                                      damping=cfg.damping)
@@ -130,13 +138,13 @@ def cggn_update(params, state: CGGNState, *, loss_logits_fn, logits_fn,
     del st
     # trust region: GN steps on non-quadratic losses can overshoot badly;
     # rescale to max_delta_norm (standard Hessian-free practice)
-    dnorm = torch.linalg.vector_norm(delta.float())
+    dnorm = _norm(delta)
     scale = torch.clamp(cfg.max_delta_norm / torch.clamp(dnorm, min=1e-9),
                         max=1.0)
     delta = delta * scale.to(delta.dtype)
     _apply(params, delta, cfg.lr)
     metrics = {"loss": loss,
-               "delta_norm": torch.linalg.vector_norm(delta.float()),
+               "delta_norm": _norm(delta),
                "grad_norm": grad_norm, "cg_iters": iters}
     return params, CGGNState(step=state.step + 1, seed=state.seed,
                              diag=diag), metrics

@@ -9,7 +9,7 @@
 with microbatch gradient accumulation (the reference's strided split:
 microbatch i takes rows i, i + k, i + 2k, …), the loss and the gradients
 summed in fp32 and divided by k, and AdamW with bf16 moments.  ``params``
-is the model (:class:`~repro_torch.models.transformer.Transformer`); the
+is the model (:func:`~repro_torch.models.api.model_class`'s module); the
 step turns its gradients on for the backward (the blocks are checkpointed
 if ``cfg.remat``) and off again, and updates it in place — the
 reference's donated buffers.

@@ -36,7 +36,9 @@ NEEDED = ("repro_torch.sparse.mtx", "repro_torch.core.shard",
           "repro_torch.train", "repro_torch.train.cggn",
           "repro_torch.train.optim", "repro_torch.train.data",
           "repro_torch.train.checkpoint", "repro_torch.train.fault",
-          "repro_torch.train.loop", "repro_torch.launch.train")
+          "repro_torch.train.loop", "repro_torch.launch.train",
+          "repro_torch.models.moe", "repro_torch.models.ssm",
+          "repro_torch.models.hybrid")
 
 
 def test_port_imports_neither_jax_nor_reference():

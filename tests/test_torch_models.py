@@ -310,9 +310,16 @@ def test_bytes_per_slot(arch, dtype):
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-780m",
                                   "zamba2-1.2b", "whisper-base"])
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        api.init_params(get_config(arch).reduced(), torch.Generator(),
-                        device="meta")
+    """Only the encoder-decoder family is left to port: it raises and names
+    its queue item; the MoE, SSM and hybrid families, which raised here
+    until they were ported, now build their modules."""
+    cfg = get_config(arch).reduced()
+    if arch == "whisper-base":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.9.3"):
+            api.init_params(cfg, torch.Generator(), device="meta")
+    else:
+        model = api.init_params(cfg, torch.Generator(), device="meta")
+        assert isinstance(model, api.model_class(cfg))
 
 
 @pytest.mark.parametrize("arch", ["granite-34b", "internvl2-76b"])
