@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py        # full size, phases 0-11 (6b, 6c); no options
+    python3 chip_smoke.py        # full size, phases 0-12 (6b, 6c); no options
 
 0. The build: every kernel's registers, stack frame and spills from the
    ptxas report; each ELLPACK instantiation with a register tree
@@ -175,9 +175,36 @@
    not fit one card):
    ``forward_logits(last_only)`` at S = 4,096 and 4 decode ticks (top-1 of
    16 experts, d = 5,120, capacity 80 a group).
+12. The encoder-decoder family and the int8 KV cache: whisper-base at full
+   width (70,686,208 random fp32 parameters drawn on the card from a
+   seeded generator, bf16 compute, 1,500 frames of seeded random audio
+   embeddings a row).  ``forward_logits(last_only)`` at B = 8, S = 4,096
+   and at B = 1, S = 32,768 (the Q-chunked path): time, tokens/s, peak
+   memory.  ``flash_attention`` composed into encoder layer 0
+   (non-causal, S = T = 1,500, BH 64, D 64: a ragged last 64-key tile)
+   and into decoder layer 0's cross attention (S 4,096, T 1,500) against
+   ``attention(cross_kv=)`` within 2e-4 at fp32 and 3e-2 at bf16 (these
+   launches count on the path); after the count is read, the kernel
+   alone at both shapes (bf16, non-causal) held as in phase 7 and timed
+   beside its plain version, SDPA and its bound (S·T live pairs).
+   ``DecodeEngine`` (bf16, 8 slots, max_len 1,024) over 10 greedy
+   requests of 8–64 tokens with their own audio, 16 new tokens each (two
+   slots reused): prefill ms/token (encode and ``prefill_cross``
+   included), ms/tick, decode tokens/s, the busy share of 8 profiled
+   ticks, cache bytes a slot (self and cross); at fp32 a fresh slot's
+   greedy continuation of a 16-token prompt equals the teacher-forced
+   rollout of ``forward_logits`` with the same audio.  A ``Trainer``
+   with AdamW (bf16 moments, lr 3e-3 from step 0) for 3 steps on one
+   batch of B = 8, S = 448 with audio (losses finite and falling or
+   within 1 % of step 0's; ms/step, tokens/s, peak memory, busy share),
+   then 2 CGGN steps through ``cggn_lm_step`` on it, every metric finite.
+   The int8 KV cache at gemma3-1b's global-layer shape (H 4, Hk 1, hd
+   256; B 8, 32,768 positions): ``attn_decode_quant`` against
+   ``attn_decode`` at bf16 within max |Δ| / max |y| < 0.05, cache bytes
+   under 0.6× bf16's, ms a decode call of each.
 
 Launch counters are set to 0 right before the solves of phases 2, 3, 6,
-6b and 6c and before phases 8, 10 and 11, and read right after; each kernel
+6b and 6c and before phases 8, 10, 11 and 12, and read right after; each kernel
 of a path must have launched on it (6b: ``spmv_sell`` and ``spmv_ellpack``; 6c runs
 the reference's plain banked-ELL product, no kernel; ``dot3`` has no
 solver path: phase 5 launches it; nor have ``spmv_ell`` at
@@ -190,7 +217,7 @@ of 48, phase 11: 48 do not fit one card).
 Any failed check raises, and so does any kernel's time under 95 % of its
 bound.  The last line is the JSON result; before the card's line come the
 sharded and distributed phases' numbers, then the LM path's, the
-training path's and the families'.
+training path's, the families' and whisper's.
 """
 from __future__ import annotations
 
@@ -1814,7 +1841,8 @@ def _flash_held(label, q, k, v, kw, tol) -> tuple:
                              f"(max |Δ| {err}, worst excess "
                              f"{float(over.max())})")
     del got, want, diff, over
-    wide = FA._flash_attention_wide(q, k, v, **kw)
+    wide = FA._flash_attention_wide(q, k, v, causal=kw["causal"],
+                                    window=kw["window"])
     want = FA.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     torch.cuda.synchronize()
     wide_err = float((wide - want).abs().max())
@@ -2005,10 +2033,11 @@ MAX_NEW = 32
 FP32_CONTINUATION = 8
 
 
-def _drive(eng, prompts, max_new):
+def _drive(eng, prompts, max_new, audio=None):
     """Admit as slots free and tick until every request is done; host-clock
     times of admission (prefill) and of the ticks, each of which ends in a
-    host read of its tokens."""
+    host read of its tokens.  ``audio``: each request's frame embeddings
+    (an encoder-decoder engine)."""
     pending = list(enumerate(prompts))
     owner, outs = {}, {}
     prefill_s = tick_s = 0.0
@@ -2016,8 +2045,9 @@ def _drive(eng, prompts, max_new):
     while pending or eng.active.any():
         while pending and (~eng.active).any():
             rid, prompt = pending.pop(0)
+            kw = {} if audio is None else {"audio_embeds": audio[rid]}
             t0 = time.perf_counter()
-            owner[eng.add_request(prompt, max_new=max_new)] = rid
+            owner[eng.add_request(prompt, max_new=max_new, **kw)] = rid
             prefill_s += time.perf_counter() - t0
         t0 = time.perf_counter()
         out = eng.step()
@@ -2719,6 +2749,426 @@ def phase_families(dev, card):
     return rows
 
 
+# ------------------------------------------------------------- phase 12
+#: whisper-base at full width: parameters (the reference's ``init_params``,
+#: by ``jax.eval_shape``); its encoder's 1,500 frames
+WHISPER, WHISPER_PARAMS, N_FRAMES = "whisper-base", 70_686_208, 1500
+#: forward_logits(last_only): train_4k's length at one card's batch, and
+#: prefill_32k's per-sequence length (the Q-chunked path)
+WHISPER_PREFILL = ((8, 4096), (1, 32768))
+#: training: B 8 at whisper's decoder context
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 8, 448
+#: flash_attention composed into encoder layer 0 (S = T = 1,500) and
+#: decoder layer 0's cross attention (S 4,096, T 1,500), at B 8
+WHISPER_COMPOSE_BATCH, WHISPER_COMPOSE_SEQ = 8, 4096
+#: the int8 KV cache at gemma3-1b's global-layer shape (d 1,152, H 4,
+#: Hk 1, hd 256), B 8, a 32,768-position cache; the reference test's bound
+QUANT_SHAPE = dict(d=1152, h=4, hk=1, hd=256, b=8, t=32768)
+QUANT_REL_MAX, QUANT_BYTES_MAX = 0.05, 0.6
+
+
+def _whisper_audio(cfg, n, dev, seed):
+    """``n`` requests' frame embeddings [n_ctx, d_model], each from its own
+    seeded generator on the card."""
+    import torch
+    return [torch.randn((cfg.encoder.n_ctx, cfg.d_model), device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed + i))
+            for i in range(n)]
+
+
+def _flash_cross(attn, x, kv_src, cfg):
+    """``attention(cross_kv=)`` rebuilt around the kernel: dense (no RoPE)
+    → kv heads repeated → head-major ``flash_attention`` (non-causal; one
+    block of S queries and one of T keys, which divide S and T: the
+    kernel tiles and masks its own ragged edges) → ``wo``."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    b, s, _ = x.shape
+    t = kv_src.shape[1]
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = A._split_heads(L.dense(attn.wq, x), h, hd)
+    k = A._repeat_kv(A._split_heads(L.dense(attn.wk, kv_src), hk, hd), h)
+    v = A._repeat_kv(A._split_heads(L.dense(attn.wv, kv_src), hk, hd), h)
+    qh = q.permute(0, 2, 1, 3).reshape(b * h, s, hd).contiguous()
+    kh, vh = (u.permute(0, 2, 1, 3).reshape(b * h, t, hd).contiguous()
+              for u in (k, v))
+    o = flash_attention(qh, kh, vh, causal=False, window=None, block_q=s,
+                        block_k=t)
+    o = o.reshape(b, h, s, hd).permute(0, 2, 1, 3).reshape(b, s, h * hd)
+    return L.dense(attn.wo, o)
+
+
+def _whisper_compose(params, cfg, dev) -> dict:
+    """``flash_attention`` composed into encoder layer 0 (non-causal,
+    S = T = 1,500: 1,500 = 23 · 64 + 28, a ragged last key tile) and into decoder layer 0's cross attention (S 4,096, T 1,500)
+    against ``attention()`` at fp32 (2e-4) and bf16 (3e-2); these launches
+    count on the path."""
+    import dataclasses
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models import encdec
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import dtype_of
+    b, s = WHISPER_COMPOSE_BATCH, WHISPER_COMPOSE_SEQ
+    audio = torch.stack(_whisper_audio(cfg, b, dev, 300))
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(
+        ).manual_seed(15)).to(dev)
+    errs = {}
+    for dt, tol in (("float32", 2e-4), ("bfloat16", 3e-2)):
+        c = dataclasses.replace(cfg, dtype=dt)
+        kw = dict(n_heads=c.n_heads, n_kv_heads=c.n_kv_heads, head_dim=c.hd)
+        x = audio.to(dtype_of(dt)) + encdec._sinusoids(
+            audio.shape[1], c.d_model, dev).to(dtype_of(dt))[None]
+        lp = params.enc_layers[0]
+        u = L.norm(lp.ln1, x, c.norm_eps)
+        enc = encdec.encode(params, c, audio)
+        dp = params.dec_layers[0]
+        y = L.norm(dp.lnx, L.embed(params.embed, tokens, dtype_of(dt)),
+                   c.norm_eps)
+        for where, attn, q_in, kv in (
+                ("encoder layer 0", lp.attn, u, u),
+                ("decoder layer 0 cross", dp.xattn, y, enc)):
+            want = A.attention(attn, q_in, cross_kv=kv, **kw)
+            got = _flash_cross(attn, q_in, kv, c)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                raise AssertionError(f"{WHISPER} {where} {dt}: flash "
+                                     f"composition differs from attention() "
+                                     f"(max |Δ| {err}, tolerance {tol})")
+            errs[f"{where}/{dt}"] = err
+            log(f"  {where} (S={q_in.shape[1]} T={kv.shape[1]} B={b}, "
+                f"{c.n_heads} heads, D={c.hd}) {dt}: dense → "
+                f"flash_attention(non-causal) → wo ≡ attention(cross_kv=) "
+                f"within {tol} (max |Δ| {err:.3e}; |y| max "
+                f"{float(want.abs().max()):.3e})")
+            del want, got
+        del x, u, enc, y
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_whisper_flash(dev) -> dict:
+    """The kernel alone at the shapes phase 12 composed it into (bf16,
+    non-causal, BH 64, D 64; S = T = 1,500 and S 4,096 × T 1,500): held
+    against its plain version as phase 7 holds it, timed beside the plain
+    version, SDPA and its bound (S·T live pairs).  Outside the path's
+    launch count."""
+    import torch
+    from repro_torch.kernels import flash_attn as FA
+    bh = WHISPER_COMPOSE_BATCH * 8
+    rows = {}
+    for label, s in (("encoder", N_FRAMES), ("cross", WHISPER_COMPOSE_SEQ)):
+        q, k, v = _qkv(bh, s, N_FRAMES, 64, torch.bfloat16, 1, dev, 96)
+        kw = dict(causal=False, window=None, block_q=s, block_k=N_FRAMES)
+        err, wide_err = _flash_held(f"{WHISPER} {label} bf16", q, k, v, kw,
+                                    2e-5)
+        b = _flash_bound(q, k, v, False, None)
+        t_k = median_ms(lambda: FA.flash_attention(q, k, v, **kw))
+        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                      reps=3)
+        t_l = median_ms(_sdpa(q, k, v, False, None))
+        share = _share(f"flash_attention {WHISPER} {label}", b["bound_ms"],
+                       t_k)
+        rows[label] = dict(shape=f"BH={bh} S={s} T={N_FRAMES} D=64 bf16 "
+                           "non-causal", max_abs_err=err, wide_err=wide_err,
+                           ms=t_k, plain_ms=t_p, library_ms=t_l, share=share,
+                           **b)
+        log(f"  flash {rows[label]['shape']} ({WHISPER} {label}): "
+            f"{_held_text(2e-5, wide_err)} (max |Δ| {err:.3e}); {t_k:.4f} ms "
+            f"(plain {t_p:.3f}, SDPA {t_l:.4f}); bound {b['bound_ms']:.4f} "
+            f"ms by {b['bound_by']} ({share:.1%}; {b['pairs']} live pairs)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _whisper_serve(params, cfg, dev) -> dict:
+    """``DecodeEngine`` (bf16, 8 slots, max_len 1,024): 10 greedy requests
+    of 8-64 tokens, each with its own audio, 16 new tokens each (two slots
+    reused), timed, and 8 profiled ticks of a full engine; then at fp32 a
+    fresh slot's greedy continuation of a 16-token prompt equals the
+    teacher-forced rollout of ``forward_logits`` with the same audio."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models import forward_logits
+    from repro_torch.serve import DecodeEngine, EngineConfig, bytes_per_slot
+    from repro_torch.serve.kv_cache import cache_bytes
+
+    rng = np.random.default_rng(16)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, int(n))]
+               for n in rng.integers(8, 65, FAMILY_PROMPTS)]
+    audio = _whisper_audio(cfg, len(prompts), dev, 200)
+    ecfg = EngineConfig(device=str(dev))
+    eng = DecodeEngine(cfg, params, ecfg)
+    outs, t = _drive(eng, prompts, FAMILY_NEW, audio)
+    if sorted(outs) != list(range(len(prompts))) or any(
+            len(o) != FAMILY_NEW for o in outs.values()):
+        raise AssertionError(f"{WHISPER} engine: outputs "
+                             f"{[len(o) for o in outs.values()]}")
+    n_prompt = sum(len(p) for p in prompts)
+    slot = eng.cache
+    self_b = cache_bytes({"self": slot["self"]}) // ecfg.batch_slots
+    cross_b = cache_bytes({"k": slot["cross_k"], "v": slot["cross_v"]}) \
+        // ecfg.batch_slots
+    row = dict(requests=len(prompts), prompt_tokens=n_prompt,
+               prefill_ms_per_token=t["prefill_s"] / n_prompt * 1e3,
+               ms_per_tick=t["tick_s"] / t["ticks"] * 1e3, ticks=t["ticks"],
+               decode_tokens_per_s=sum(len(o) - 1 for o in outs.values())
+               / t["tick_s"],
+               tokens_per_s=sum(map(len, outs.values()))
+               / (t["prefill_s"] + t["tick_s"]),
+               cache_bytes_per_slot=bytes_per_slot(cfg, ecfg.max_len),
+               self_bytes_per_slot=self_b, cross_bytes_per_slot=cross_b)
+    if self_b + cross_b != row["cache_bytes_per_slot"]:
+        raise AssertionError(f"cache bytes a slot {row}")
+    for p, a in zip(prompts[:ecfg.batch_slots], audio):
+        eng.add_request(p[:8], max_new=FAMILY_NEW, audio_embeds=a)
+    n_prof = 8
+    _, wall, ev = device_profile(lambda: [eng.step() for _ in range(n_prof)])
+    busy = sum(ms for _, ms, _ in ev) / n_prof
+    prof_tick = wall / n_prof * 1e3
+    row.update(busy_ms_per_tick=busy, busy_share=busy / prof_tick,
+               profiled_ms_per_tick=prof_tick,
+               kernels_per_tick=sum(c for _, _, c in ev) / n_prof)
+    log(f"  bf16 engine: {len(prompts)} requests ({n_prompt} prompt tokens, "
+        f"each with its audio), {t['ticks']} ticks of {ecfg.batch_slots} "
+        f"slots: prefill {row['prefill_ms_per_token']:.2f} ms/token "
+        f"(encode + prefill_cross included), {row['ms_per_tick']:.2f} "
+        f"ms/tick = {row['decode_tokens_per_s']:.0f} decode tokens/s "
+        f"({row['tokens_per_s']:.0f} tokens/s with prefill); {n_prof} "
+        f"profiled ticks: device busy {busy:.2f} of {prof_tick:.2f} ms/tick "
+        f"= {busy / prof_tick:.1%}, {row['kernels_per_tick']:.0f} "
+        f"kernels/tick; cache {row['cache_bytes_per_slot']} B/slot (self "
+        f"{self_b}, cross {cross_b}) [{time.perf_counter() - _START:.0f} s]")
+    for key, ms, c in sorted(ev, key=lambda e: -e[1])[:4]:
+        log(f"      {ms:9.2f} ms {c:6d}x  {key[:80]}")
+    del eng
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    eng32 = DecodeEngine(cfg32, params, EngineConfig(
+        batch_slots=2, cache_dtype="float32", device=str(dev)))
+    prompt = prompts[0][:FAMILY_SHORT]
+    outs32, _ = _drive(eng32, [prompt], FP32_CONTINUATION, audio[:1])
+    seq, want = list(prompt), []
+    for _ in range(FP32_CONTINUATION):
+        lg = forward_logits(params, cfg32, {
+            "tokens": torch.tensor([seq], device=dev),
+            "audio_embeds": audio[0][None]}, last_only=True)
+        want.append(int(torch.argmax(lg[0, -1])))
+        seq.append(want[-1])
+    if outs32[0] != want:
+        raise AssertionError(f"{WHISPER} fp32 engine {outs32[0]} != rollout "
+                             f"{want}")
+    log(f"  fp32 engine (fresh slot): {FP32_CONTINUATION}-token greedy "
+        f"continuation of a {FAMILY_SHORT}-token prompt with its audio == "
+        f"teacher-forced rollout [{time.perf_counter() - _START:.0f} s]")
+    return row
+
+
+def _whisper_train(cfg, dev) -> dict:
+    """A ``Trainer`` with AdamW (bf16 moments, lr 3e-3 from step 0), 3 steps
+    on one batch of B 8, S 448 with audio: finite losses that fall or stay
+    within 1 % of step 0's; ms/step, tokens/s, peak memory, the busy share
+    of one profiled step.  Then 2 CGGN steps through
+    ``launch/train.cggn_lm_step`` on that batch, every metric finite."""
+    import math
+    import tempfile
+    import torch
+    from repro_torch.launch.train import CGGN_CONFIG, cggn_lm_step
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
+                                   Trainer, TrainerConfig, adamw_init,
+                                   cggn_init, make_train_step)
+
+    b, s = WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ
+    data = _OneBatch(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=s, global_batch=b, seed=0), device=dev))
+    data.batch["audio_embeds"] = torch.stack(_whisper_audio(cfg, b, dev,
+                                                            400))
+    opt = AdamWConfig(lr=3e-3)
+    step_fn = make_train_step(cfg, opt=opt, schedule=lambda step: torch.tensor(
+        opt.lr), device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(51),
+                         device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = Trainer(cfg, data, step_fn, params, adamw_init(params, opt),
+                     TrainerConfig(total_steps=FAMILY_TRAIN_STEPS,
+                                   ckpt_every=0, ckpt_dir=tmp, log_every=0),
+                     torch.Generator().manual_seed(51))
+        tr.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in tr.metrics_log]
+    step_ms = [m["step_time_s"] * 1e3 for m in tr.metrics_log]
+    if not all(math.isfinite(v) for v in losses) or any(
+            v > losses[0] * 1.01 for v in losses[1:]):
+        raise AssertionError(f"{WHISPER} AdamW losses {losses}")
+    ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    _, wall, ev = device_profile(lambda: step_fn(
+        tr.params, tr.opt_state, data.batch, FAMILY_TRAIN_STEPS))
+    busy = sum(t for _, t, _ in ev)
+    tokens = b * s
+    row = dict(batch=b, seq=s, frames=cfg.encoder.n_ctx, losses=losses,
+               step_ms=step_ms, ms_per_step=ms,
+               tokens_per_s=tokens / ms * 1e3, peak_bytes=peak,
+               busy_ms=busy, busy_share=busy / ms,
+               busy_share_profiled=busy / (wall * 1e3),
+               kernels=sum(c for _, _, c in ev))
+    log(f"  AdamW {FAMILY_TRAIN_STEPS} steps B={b} S={s} "
+        f"({cfg.encoder.n_ctx} frames a row): losses {[round(v, 4) for v in losses]}; steps "
+        f"{[round(v, 1) for v in step_ms]} ms → {ms:.1f} ms/step = "
+        f"{tokens / ms * 1e3:.0f} tokens/s; peak {_gib(peak)}; one profiled "
+        f"step: device busy {busy:.1f} ms = {busy / ms:.1%}, "
+        f"{row['kernels']} kernels [{time.perf_counter() - _START:.0f} s]")
+    del tr
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = cggn_init(params, 0)
+    steps = []
+    for step in range(CGGN_STEPS):
+        (params, state, m), wall = _single(
+            lambda: cggn_lm_step(params, state, data.batch))
+        m = {k: float(v) for k, v in m.items()}
+        m["ms"] = wall * 1e3
+        steps.append(m)
+        if not all(math.isfinite(v) for v in m.values()) or \
+                m["delta_norm"] > CGGN_CONFIG.max_delta_norm * (1 + 1e-6):
+            raise AssertionError(f"{WHISPER} CGGN step {step}: {m}")
+    row.update(cggn_steps=steps,
+               cggn_peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  CGGN {CGGN_STEPS} steps (cggn_lm_step, audio fed): losses "
+        f"{[round(m['loss'], 4) for m in steps]}, |δ| "
+        f"{[round(m['delta_norm'], 4) for m in steps]}, inner CG "
+        f"{[int(m['cg_iters']) for m in steps]} iterations, "
+        f"{[round(m['ms']) for m in steps]} ms; peak "
+        f"{_gib(row['cggn_peak_bytes'])} [{time.perf_counter() - _START:.0f}"
+        f" s]")
+    del params, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_quant_cache(dev) -> dict:
+    """The int8 KV cache at gemma3-1b's global-layer shape: both caches
+    hold the same 32,767 random positions (bf16, and their int8
+    quantization), then one decode step at the last position:
+    ``attn_decode_quant`` against ``attn_decode`` at bf16 within max
+    |Δ| / max |y| < 0.05, cache bytes under 0.6× bf16's, ms a decode call
+    of each."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import draw_parameters
+    from repro_torch.serve import (attn_decode_quant, init_quant_cache,
+                                   quantize_kv)
+    from repro_torch.serve.kv_cache import cache_bytes
+    q = QUANT_SHAPE
+    gen = torch.Generator(dev).manual_seed(17)
+    p = draw_parameters(A.Attention(q["d"], q["h"], q["hk"], q["hd"],
+                                    device=dev), gen)
+    bf = A.init_attn_cache(q["b"], q["t"], q["hk"], q["hd"],
+                           dtype=torch.bfloat16, device=dev)
+    qc = init_quant_cache(q["b"], q["t"], q["hk"], q["hd"], device=dev)
+    for name in ("k", "v"):
+        rows = torch.randn(bf.k.shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+        getattr(bf, name).copy_(rows)
+        vals, scale = quantize_kv(rows)
+        getattr(qc, name).copy_(vals)
+        getattr(qc, f"{name}_scale").copy_(scale)
+        del rows, vals, scale
+    x = torch.randn((q["b"], 1, q["d"]), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = q["t"] - 1
+    kw = dict(n_heads=q["h"], n_kv_heads=q["hk"], head_dim=q["hd"])
+    y, _ = A.attn_decode(p, x, bf, pos, **kw)
+    yq, _ = attn_decode_quant(p, x, qc, pos, **kw)
+    torch.cuda.synchronize()
+    rel = float((y.float() - yq.float()).abs().max()
+                / (y.float().abs().max() + 1e-6))
+    qb, fb = cache_bytes({"q": qc}), cache_bytes({"bf16": bf})
+    if not (rel < QUANT_REL_MAX and qb < QUANT_BYTES_MAX * fb and bool(
+            torch.isfinite(yq).all())):
+        raise AssertionError(f"int8 cache: max |Δ|/max |y| {rel}, bytes "
+                             f"{qb} against bf16's {fb}")
+    t_bf = cuda_ms(lambda: A.attn_decode(p, x, bf, pos, **kw))
+    t_q = cuda_ms(lambda: attn_decode_quant(p, x, qc, pos, **kw))
+    row = dict(shape=f"B={q['b']} H={q['h']} Hk={q['hk']} hd={q['hd']} "
+               f"T={q['t']} d={q['d']}", rel_err=rel, bytes=qb,
+               bf16_bytes=fb, bytes_ratio=qb / fb, ms=t_q, bf16_ms=t_bf)
+    log(f"  int8 cache {row['shape']}: attn_decode_quant ≡ attn_decode (bf16) "
+        f"within max |Δ|/max |y| {rel:.4f} < {QUANT_REL_MAX}; {qb} B against "
+        f"{fb} B = {qb / fb:.3f}× (< {QUANT_BYTES_MAX}); a decode call "
+        f"{t_q:.3f} ms (bf16 cache {t_bf:.3f} ms)")
+    del bf, qc
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_whisper(dev, card) -> dict:
+    """whisper-base at full width (random fp32 parameters drawn on the card
+    from a seeded generator, bf16 compute): ``forward_logits(last_only)``
+    at B 8, S 4,096 and at B 1, S 32,768 with 1,500 frames, timed; the
+    kernel composed into the encoder and the cross attention; the
+    ``DecodeEngine`` checks of :func:`_whisper_serve`; AdamW and CGGN
+    steps (:func:`_whisper_train`); the int8 KV cache."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import count_params, forward_logits, init_params
+
+    cfg = get_config(WHISPER)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(50),
+                         device=dev)
+    n = count_params(params)
+    if n != WHISPER_PARAMS:
+        raise AssertionError(f"{WHISPER}: {n} parameters, the reference's "
+                             f"init_params {WHISPER_PARAMS}")
+    rows = {"card": card, "params": n, "prefill": {}}
+    for b, s in WHISPER_PREFILL:
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(
+            ).manual_seed(s)).to(dev)
+        audio = torch.stack(_whisper_audio(cfg, b, dev, 100))
+
+        def fwd():
+            return forward_logits(params, cfg, {"tokens": tokens,
+                                                "audio_embeds": audio},
+                                  last_only=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        logits = fwd()
+        torch.cuda.synchronize()
+        if logits.shape != (b, 1, cfg.vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{WHISPER} forward_logits: shape "
+                                 f"{tuple(logits.shape)}, finite "
+                                 f"{bool(torch.isfinite(logits).all())}")
+        walls = [_single(fwd)[1] for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated()
+        rows["prefill"][f"B{b}xS{s}"] = dict(
+            ms=min(walls) * 1e3, tokens_per_s=b * s / min(walls),
+            peak_bytes=peak, walls_ms=[w * 1e3 for w in walls])
+        log(f"[{WHISPER}, {time.perf_counter() - _START:.0f} s] {n} "
+            f"parameters; forward_logits(last_only) B={b} S={s}, "
+            f"{cfg.encoder.n_ctx} frames, {cfg.dtype}: {min(walls) * 1e3:.1f} ms (of "
+            f"{[round(w * 1e3, 1) for w in walls]}) = "
+            f"{b * s / min(walls):.0f} tokens/s; peak {_gib(peak)}")
+        del logits, tokens, audio
+    rows["compose_err"] = _whisper_compose(params, cfg, dev)
+    rows["engine"] = _whisper_serve(params, cfg, dev)
+    del params
+    torch.cuda.empty_cache()
+    rows["train"] = _whisper_train(cfg, dev)
+    rows["quant_cache"] = phase_quant_cache(dev)
+    return rows
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if len(sys.argv) > 1:
@@ -2765,7 +3215,8 @@ def main() -> int:
              "single": ("spmv_ell", "dot", "phase2", "phase3",
                         "spmv_ell[tpu_v3]"),
              "sharded": ("spmv_sell", "spmv_ellpack"),
-             "lm": ("flash_attention",), "families": ("flash_attention",)}
+             "lm": ("flash_attention",), "families": ("flash_attention",),
+             "whisper": ("flash_attention",)}
     launches = {}
     log_phase("[phase 1] kernels against their plain versions")
     timed = phase_kernels(bag, dev)
@@ -2837,6 +3288,13 @@ def main() -> int:
     launches["families"] = ops.launches()
     log(f"  launches {launches['families']}")
     families["flash_attention"] = phase_families_flash(dev)
+    log_phase(f"[phase 12] {WHISPER} at full width (encoder-decoder), the "
+              "int8 KV cache")
+    ops.reset_launches()
+    whisper = phase_whisper(dev, card)
+    launches["whisper"] = ops.launches()
+    log(f"  launches {launches['whisper']}")
+    whisper["flash_attention"] = phase_whisper_flash(dev)
     for path, names in paths.items():
         for name in names:
             if launches[path][name] <= 0:
@@ -2880,6 +3338,7 @@ def main() -> int:
     print(json.dumps({"lm": lm}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"families": families}), flush=True)
+    print(json.dumps({"whisper": whisper}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

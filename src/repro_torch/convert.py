@@ -11,12 +11,14 @@ port's solvers, runners and steppers consume, so one packed operand or
 one mid-flight state can be fed to both packages.
 
 The LM side: :func:`lm_params_to_torch` turns the reference's
-``init_params`` pytree (nested dicts of arrays, the layers stacked on a
-leading ``L`` axis) into the port's module of the config's family
+``init_params`` pytree (nested dicts of arrays, each stack's layers —
+``layers``, or the encoder-decoder's ``enc_layers`` and ``dec_layers`` —
+on a leading ``L`` axis) into the port's module of the config's family
 (:func:`~repro_torch.models.api.model_class`), and
 :func:`lm_cache_to_torch` a reference cache (``{name: AttnCache |
-SSMCache}``) into the port's; :func:`lm_params_from_torch` carries the
-port's parameters back as the reference's tree of numpy arrays.
+SSMCache | array}``) into the port's; :func:`lm_params_from_torch`
+carries the port's parameters back as the reference's tree of numpy
+arrays.
 
 The training side: :func:`adamw_state_to_torch` and
 :func:`cggn_state_to_torch` carry optimizer states across.  A flat
@@ -187,17 +189,28 @@ def load_tree(module: torch.nn.Module, tree) -> torch.nn.Module:
     return module
 
 
+def _stacks(cfg: ModelConfig) -> dict:
+    """The reference's stacked top-level keys and their layer counts."""
+    if cfg.encoder is not None:
+        return {"enc_layers": cfg.encoder.n_layers,
+                "dec_layers": cfg.n_layers}
+    return {"layers": cfg.n_layers}
+
+
 def _lm_state(tree, cfg: ModelConfig) -> dict:
     """``{port name: array}`` from a reference LM tree: a leaf
-    ``layers.<path>`` of shape ``[L, ...]`` becomes ``layers.<l>.<path>``
-    for every layer ``l``; every other path (``embed``, ``ln_f``, the
-    hybrid's unstacked ``shared.*``) is its own key."""
+    ``<stack>.<path>`` of shape ``[L, ...]`` (``layers``, ``enc_layers``,
+    ``dec_layers``) becomes ``<stack>.<l>.<path>`` for every layer ``l``;
+    every other path (``embed``, ``ln_f``, ``enc_ln``, the hybrid's
+    unstacked ``shared.*``) is its own key."""
+    stacks = _stacks(cfg)
     state = {}
     for name, a in _flatten(tree):
-        if name.startswith("layers."):
+        top, _, rest = name.partition(".")
+        if top in stacks:
             stacked = np.asarray(a)
-            state.update((f"layers.{l}.{name[7:]}", stacked[l])
-                         for l in range(cfg.n_layers))
+            state.update((f"{top}.{l}.{rest}", stacked[l])
+                         for l in range(stacks[top]))
         else:
             state[name] = a
     return state
@@ -229,13 +242,15 @@ def _port_names(cfg: ModelConfig) -> list:
 def _ref_leaves(cfg: ModelConfig) -> list:
     """The reference's LM leaves in its ravel order (dict keys sorted at
     every level): ``(path, stacked shape, port names)``, the port names of
-    a ``layers`` leaf in layer order."""
+    a stacked leaf in layer order."""
+    stacks = _stacks(cfg)
     leaves = {}
     for name, shape in _port_names(cfg):
-        if name.startswith("layers."):
-            rest = name.split(".", 2)[2]
-            leaf = leaves.setdefault(("layers", *rest.split(".")),
-                                     [(cfg.n_layers, *shape), []])
+        top, _, rest = name.partition(".")
+        if top in stacks:
+            rest = rest.split(".", 1)[1]
+            leaf = leaves.setdefault((top, *rest.split(".")),
+                                     [(stacks[top], *shape), []])
             leaf[1].append(name)
         else:
             leaves[tuple(name.split("."))] = [tuple(shape), [name]]
@@ -243,18 +258,19 @@ def _ref_leaves(cfg: ModelConfig) -> list:
 
 
 def lm_params_from_torch(params, cfg: ModelConfig) -> dict:
-    """The reference's LM tree (nested dicts of numpy arrays, the layers
-    stacked on a leading ``L`` axis) from the port's module or a
+    """The reference's LM tree (nested dicts of numpy arrays, each stack's
+    layers on a leading ``L`` axis) from the port's module or a
     ``{name: tensor}`` dict of its names."""
     if isinstance(params, torch.nn.Module):
         params = dict(params.named_parameters())
+    stacks = _stacks(cfg)
     tree = {}
     for path, (_, names) in _ref_leaves(cfg):
         arrs = [_host(params[n]) for n in names]
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrs) if path[0] == "layers" else arrs[0]
+        node[path[-1]] = np.stack(arrs) if path[0] in stacks else arrs[0]
     return tree
 
 
@@ -262,12 +278,13 @@ def lm_flat_to_torch(flat, cfg: ModelConfig, *, device=None) -> torch.Tensor:
     """A parameter-space vector in the reference's ravel order, reordered
     as the port's ``flatten_like`` of the module (same values)."""
     flat = np.asarray(flat)
+    stacks = _stacks(cfg)
     pieces, ofs = {}, 0
     for path, (shape, names) in _ref_leaves(cfg):
         size = int(np.prod(shape))
         block = flat[ofs:ofs + size].reshape(shape)
         ofs += size
-        pieces.update(zip(names, block) if path[0] == "layers"
+        pieces.update(zip(names, block) if path[0] in stacks
                       else [(names[0], block)])
     return to_device(np.concatenate([pieces[n].ravel()
                                      for n, _ in _port_names(cfg)]),
@@ -294,8 +311,9 @@ def adamw_state_to_torch(state, cfg: ModelConfig = None, *,
     """The port's :class:`~repro_torch.train.optim.AdamWState` from the
     reference's (read by attribute: ``step``, ``m``, ``v``).  With ``cfg``
     the moments are an LM tree and take the module's names
-    (``layers.<l>.…``); without, a tree's leaves take their key paths
-    joined with ``"."`` (:func:`~repro_torch.core.gn.param_dict`'s names).
+    (``layers.<l>.…``, ``enc_layers.<l>.…``, ``dec_layers.<l>.…``);
+    without, a tree's leaves take their key paths joined with ``"."``
+    (:func:`~repro_torch.core.gn.param_dict`'s names).
     bf16 moments arrive bit for bit; the step stays on the host."""
     dev = resolve_device(device)
     return AdamWState(step=torch.tensor(int(np.asarray(state.step)),
@@ -322,11 +340,17 @@ def cggn_state_to_torch(state, cfg: ModelConfig = None, *,
 
 def lm_cache_to_torch(cache, *, device=None) -> dict:
     """The port's stacked caches from the reference's (``{name: AttnCache
-    | SSMCache}``, read by attribute: ``k``, ``v``, ``ring``, or ``conv``,
-    ``ssm``); bf16 leaves arrive bit for bit."""
+    | SSMCache | array}``, read by attribute: ``k``, ``v``, ``ring``, or
+    ``conv``, ``ssm``; a bare array — the encoder-decoder's ``cross_k`` /
+    ``cross_v`` — stays a bare tensor); bf16 leaves arrive bit for bit."""
     dev = resolve_device(device)
-    return {name: SSMCache(to_device(c.conv, dev), to_device(c.ssm, dev))
-            if hasattr(c, "conv")
-            else AttnCache(to_device(c.k, dev), to_device(c.v, dev),
-                           bool(c.ring))
-            for name, c in cache.items()}
+
+    def one(c):
+        if hasattr(c, "conv"):
+            return SSMCache(to_device(c.conv, dev), to_device(c.ssm, dev))
+        if hasattr(c, "ring"):
+            return AttnCache(to_device(c.k, dev), to_device(c.v, dev),
+                             bool(c.ring))
+        return to_device(c, dev)
+
+    return {name: one(c) for name, c in cache.items()}

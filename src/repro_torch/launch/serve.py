@@ -8,8 +8,10 @@ Example::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --device cpu                  # the reduced config on the CPU
 
-Every ported family serves: dense, MoE (``granite-moe-1b-a400m``), SSM
-(``mamba2-780m``) and hybrid (``zamba2-1.2b``); encoder-decoder raises.
+Every family serves: dense, MoE (``granite-moe-1b-a400m``), SSM
+(``mamba2-780m``), hybrid (``zamba2-1.2b``) and encoder-decoder
+(``whisper-base``: each request is admitted with zero frame embeddings
+``[n_ctx, d_model]``, as the reference's launcher does).
 """
 from __future__ import annotations
 
@@ -56,11 +58,15 @@ def main(argv=None):
     pending = [list(rng.integers(1, cfg.vocab, size=rng.integers(3, 10)))
                for _ in range(args.requests)]
     done, t0, ticks = [], time.monotonic(), 0
+    audio = None
+    if cfg.encoder is not None:
+        audio = torch.zeros((cfg.encoder.n_ctx, cfg.d_model), device=dev)
+
     while pending or eng.active.any():
         while pending and (~eng.active).any():
             prompt = pending.pop()
             s = eng.add_request([int(t) for t in prompt],
-                                max_new=args.max_new)
+                                max_new=args.max_new, audio_embeds=audio)
             print(f"  admitted slot {s} (prompt {len(prompt)} tokens)")
         out = eng.step()
         ticks += 1

@@ -3,7 +3,11 @@
 
 The reduced config by default; ``--full`` selects the published one.  The
 dense, MoE, SSM and hybrid families train (``--arch granite-moe-1b-a400m
---optimizer cggn``, ``--arch mamba2-780m``, ...).
+--optimizer cggn``, ``--arch mamba2-780m``, ...).  The encoder-decoder
+family (``--arch whisper-base``) raises before any work, as the
+reference's launcher does (a ``KeyError``): ``SyntheticLM`` makes no
+``audio_embeds``.  whisper trains through ``make_train_step`` / ``Trainer``
+and :func:`cggn_lm_step` on batches that carry them.
 
 Example::
 
@@ -38,12 +42,18 @@ CGGN_CONFIG = CGGNConfig(cg_iters=8, scheme="tpu_fp32", lr=1.0)
 def lm_ggn_fns(params, batch):
     """``(logits_fn, loss_logits)`` of the LM ``params`` on ``batch``: the
     model run through ``functional_call`` on a ``{name: tensor}`` dict,
-    and the mean next-token cross entropy in the logits (the GGN's
-    factorization, :func:`repro_torch.core.gn.make_ggn_matvec`)."""
+    with the batch's frontend embeddings as the reference's
+    ``forward_logits(p, cfg, batch)`` takes them (``patch_embeds``, or an
+    encoder-decoder's ``audio_embeds``), and the mean next-token cross
+    entropy in the logits (the GGN's factorization,
+    :func:`repro_torch.core.gn.make_ggn_matvec`)."""
     labels = batch["labels"]
+    extra = batch["audio_embeds"] if params.cfg.encoder is not None \
+        else batch.get("patch_embeds")
+    args = (batch["tokens"], extra)
 
     def logits_fn(p):
-        return functional_call(params, p, (batch["tokens"],))
+        return functional_call(params, p, args)
 
     def loss_logits(lg):
         lse = torch.logsumexp(lg, dim=-1)
@@ -88,6 +98,13 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.encoder is not None:
+        raise ValueError(
+            f"{cfg.name}: the synthetic data gives no audio_embeds, so the "
+            "launcher cannot train the encoder-decoder family; neither can "
+            "the reference's (a KeyError: ROADMAP C).  Train it through "
+            "make_train_step / Trainer or cggn_lm_step on batches that "
+            "carry audio_embeds")
     if not args.full:
         cfg = cfg.reduced()
     print(f"arch={cfg.name} family={cfg.family} "

@@ -1,6 +1,7 @@
 """LM model substrate of the port — the decoder-only families (dense, MoE,
-VLM: :mod:`~repro_torch.models.transformer`) and the SSM and hybrid ones
-(:mod:`~repro_torch.models.hybrid`), dispatched through
+VLM: :mod:`~repro_torch.models.transformer`), the SSM and hybrid ones
+(:mod:`~repro_torch.models.hybrid`) and the encoder-decoder one
+(:mod:`~repro_torch.models.encdec`), dispatched through
 :mod:`repro_torch.models.api`.  Entry points run on ``"cuda"`` unless the
 caller passes ``device="cpu"``."""
 from repro_torch.models.api import (count_params, decode_step, forward_logits,

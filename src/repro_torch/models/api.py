@@ -2,11 +2,12 @@
 surface the server and the trainer (:mod:`repro_torch.train`) consume.
 
 ``batch`` dicts: ``{"tokens": [B,S] int, "labels": [B,S] int}``, plus
-``{"patch_embeds": [B,P,D]}`` for the VLM.  The decoder-only families
+``{"patch_embeds": [B,P,D]}`` for the VLM and ``{"audio_embeds":
+[B,T,D]}`` for the encoder-decoder family.  The decoder-only families
 (dense, MoE, VLM) run through :mod:`~repro_torch.models.transformer`, the
-``ssm`` and ``hybrid`` families through :mod:`~repro_torch.models.hybrid`;
-the encoder-decoder family raises ``NotImplementedError`` until it is
-ported (ROADMAP A.9.3).
+``ssm`` and ``hybrid`` families through :mod:`~repro_torch.models.hybrid`,
+the encoder-decoder one (whisper) through
+:mod:`~repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_params", "forward_logits", "loss_fn", "init_cache",
@@ -25,18 +26,18 @@ def _mod(cfg: ModelConfig):
     if cfg.family in ("ssm", "hybrid"):
         return hybrid
     if cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family is not ported yet "
-            "(models/encdec.py; ROADMAP A.9.3)")
+        return encdec
     return transformer
 
 
 def model_class(cfg: ModelConfig) -> type:
     """The ``nn.Module`` that holds ``cfg``'s parameters
-    (:class:`~repro_torch.models.transformer.Transformer` or
-    :class:`~repro_torch.models.hybrid.Hybrid`): built as
+    (:class:`~repro_torch.models.transformer.Transformer`,
+    :class:`~repro_torch.models.hybrid.Hybrid` or
+    :class:`~repro_torch.models.encdec.EncDec`): built as
     ``model_class(cfg)(cfg, device=...)``, not drawn."""
-    return hybrid.Hybrid if _mod(cfg) is hybrid else transformer.Transformer
+    return {hybrid: hybrid.Hybrid, encdec: encdec.EncDec}.get(
+        _mod(cfg), transformer.Transformer)
 
 
 def init_params(cfg: ModelConfig,
@@ -46,6 +47,9 @@ def init_params(cfg: ModelConfig,
 
 def forward_logits(params, cfg: ModelConfig, batch: Dict[str, Any],
                    last_only: bool = False) -> torch.Tensor:
+    if cfg.encoder is not None:
+        return encdec.forward(params, cfg, batch["tokens"],
+                              batch["audio_embeds"], last_only=last_only)
     return _mod(cfg).forward(params, cfg, batch["tokens"],
                              extra_embeds=batch.get("patch_embeds"),
                              last_only=last_only)

@@ -1,11 +1,17 @@
 """Attention — the port of :mod:`repro.models.attention`: GQA/MQA,
-sliding-window and local:global masks, and KV-cache decode.
+sliding-window and local:global masks, cross attention, and KV-cache
+decode.
 
 * **GQA/MQA** — ``n_kv_heads`` ≤ ``n_heads``.  The full-sequence path
   repeats the kv heads (``_repeat_kv``); the decode path groups the query
   heads per kv head instead, so the cache is never repeated.
 * **Sliding window** (h2o-danube, gemma3 local layers) — the mask keeps
   ``(i − w, i]``; decode uses a **ring KV cache** of length ``w``.
+* **Cross attention** (whisper's decoder, and its bidirectional encoder
+  as cross attention of a sequence on itself) — ``cross_kv``: k and v
+  from the encoder states, no mask, no RoPE.  Decode attends to the
+  cached encoder K/V through the seq-major grouped helpers
+  (:func:`_gqa_scores_grouped`, :func:`_gqa_out_grouped`).
 * Softmax statistics are fp32 whatever the compute dtype; masked scores
   are ``_NEG = −1e30``.
 
@@ -17,8 +23,7 @@ The computation is plain PyTorch, as the reference's is plain ``jnp``: the
 hand-written kernel :func:`repro_torch.kernels.flash_attention` is an entry
 point of its own, held against this module on the model's own q/k/v.  The
 reference's sharding hints (``distributed.hints``) are no-ops without a
-mesh and are left out; cross attention (``cross_kv``) comes with the
-encoder-decoder family.
+mesh and are left out.
 """
 from __future__ import annotations
 
@@ -68,6 +73,25 @@ def _repeat_kv(kv: torch.Tensor, hq: int) -> torch.Tensor:
     return torch.repeat_interleave(kv, hq // hk, dim=2)
 
 
+def _gqa_scores_grouped(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Decode-path GQA on a seq-major cache: q [B,S,Hq,D] × k [B,T,Hk,D]
+    -> [B,Hq,S,T], query heads grouped per kv head (no kv repetition)."""
+    b, s, hq, dd = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(b, s, hk, hq // hk, dd)
+    sc = torch.einsum("bshgd,bthd->bhgst", qg, k)
+    return sc.reshape(b, hq, s, k.shape[1])
+
+
+def _gqa_out_grouped(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """w [B,Hq,S,T] × seq-major v [B,T,Hk,D] -> [B,S,Hq,D]."""
+    b, hq, s, t = w.shape
+    hk = v.shape[2]
+    wg = w.reshape(b, hk, hq // hk, s, t)
+    o = torch.einsum("bhgst,bthd->bshgd", wg, v)
+    return o.reshape(b, s, hq, v.shape[-1])
+
+
 def _pick_chunk(s: int, target: int) -> Optional[int]:
     """Largest divisor of ``s`` that is ≤ target and a multiple of 8."""
     for c in range(min(target, s), 7, -1):
@@ -100,18 +124,29 @@ def attention(p: Attention, x: torch.Tensor, *, n_heads: int,
               n_kv_heads: int, head_dim: int,
               positions: Optional[torch.Tensor] = None,
               window: Optional[int] = None, causal: bool = True,
-              rope_theta: float = 10_000.0) -> torch.Tensor:
-    """Full-sequence self attention.  x: [B, S, D] -> [B, S, D].
-    ``window``: sliding-window width (None = full)."""
+              rope_theta: float = 10_000.0,
+              cross_kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention.  x: [B, S, D] -> [B, S, D].
+    ``window``: sliding-window width (None = full).  ``cross_kv``
+    [B, T, D] switches to cross attention: k and v projected from it, no
+    RoPE, no mask (``causal`` and ``window`` are ignored)."""
     b, s, _ = x.shape
     q = _split_heads(dense(p.wq, x), n_heads, head_dim)
-    k = _split_heads(dense(p.wk, x), n_kv_heads, head_dim)
-    v = _split_heads(dense(p.wv, x), n_kv_heads, head_dim)
-    if positions is None:
+    kv_src = x if cross_kv is None else cross_kv
+    k = _split_heads(dense(p.wk, kv_src), n_kv_heads, head_dim)
+    v = _split_heads(dense(p.wv, kv_src), n_kv_heads, head_dim)
+    if cross_kv is None:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        cos, sin = rope_freqs(positions, head_dim, rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        pos_k = positions
+    else:
         positions = torch.arange(s, device=x.device)[None, :]
-    cos, sin = rope_freqs(positions, head_dim, rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = _repeat_kv(apply_rope(k, cos, sin), n_heads)   # once, not per chunk
+        pos_k = torch.arange(k.shape[1], device=x.device)[None, :]
+        causal, window = False, None
+    k = _repeat_kv(k, n_heads)                      # once, not per chunk
     v = _repeat_kv(v, n_heads)
 
     kw = dict(causal=causal, window=window, head_dim=head_dim,
@@ -120,10 +155,10 @@ def attention(p: Attention, x: torch.Tensor, *, n_heads: int,
     if chunk is not None and positions.shape[0] == 1:
         o = torch.cat([
             _masked_softmax_attn(q[:, c:c + chunk], k, v,
-                                 positions[:, c:c + chunk], positions, **kw)
+                                 positions[:, c:c + chunk], pos_k, **kw)
             for c in range(0, s, chunk)], dim=1)
     else:
-        o = _masked_softmax_attn(q, k, v, positions, positions, **kw)
+        o = _masked_softmax_attn(q, k, v, positions, pos_k, **kw)
     return dense(p.wo, o.reshape(b, s, n_heads * head_dim))
 
 

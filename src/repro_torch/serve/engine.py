@@ -7,7 +7,11 @@ each carries its own position, so a new request can join mid-flight.
 Admission prefills the prompt into the slot's cache token by token through
 a batch-1 view (the reference's ``lax.scan`` of decode steps; the other
 slots are untouched), then the slot joins the shared tick.  Every family
-the models port serves through it (dense, MoE, SSM, hybrid).
+the models port serves through it (dense, MoE, SSM, hybrid,
+encoder-decoder).  An encoder-decoder request brings its frame
+embeddings (``audio_embeds``): admission encodes them at batch 1 and
+writes the slot's cross K/V (:func:`~repro_torch.models.encdec
+.prefill_cross`) before the prompt's prefill.
 
 The prefill starts from the slot's current content, as the reference's
 does: for attention that is harmless (the positions are rewritten), but a
@@ -21,7 +25,6 @@ Sampling: greedy, or temperature sampling from a ``torch.Generator`` seeded
 with ``EngineConfig.seed`` (the same seed gives the same tokens; the draws
 differ from the reference's ``jax.random``, so only greedy output is
 comparable across the packages).  EOS or ``max_new`` frees the slot.
-Requests of the encoder-decoder family (``audio_embeds``) wait for its port.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec
 from repro_torch.models.api import decode_step, init_cache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import dtype_of
@@ -104,17 +108,28 @@ class DecodeEngine:
         return slot_cache, prompt.shape[0], logits[0]
 
     # ------------------------------------------------------------ public
-    def add_request(self, prompt: List[int], max_new: int = 32) -> int:
-        """Admit a request into a free slot; returns the slot id."""
+    def add_request(self, prompt: List[int], max_new: int = 32,
+                    audio_embeds: Optional[torch.Tensor] = None) -> int:
+        """Admit a request into a free slot; returns the slot id.  An
+        encoder-decoder config needs ``audio_embeds`` [n_ctx, d_model]."""
         free = np.flatnonzero(~self.active)
         if free.size == 0:
             raise RuntimeError("no free slots")
         if len(prompt) == 0:
             raise ValueError("empty prompt")
         s = int(free[0])
+        slot = slot_view(self.cache, s)
+        if self.cfg.encoder is not None:
+            if audio_embeds is None:
+                raise ValueError(f"{self.cfg.name}: an audio arch needs "
+                                 "audio_embeds")
+            enc = encdec.encode(self.params, self.cfg,
+                                audio_embeds[None].to(self.device))
+            ck, cv = encdec.prefill_cross(self.params, self.cfg, enc)
+            slot["cross_k"].copy_(ck)           # cast to the cache dtype
+            slot["cross_v"].copy_(cv)
         slot, pos, logits = self._prefill(
-            slot_view(self.cache, s),
-            self._dev(np.asarray(prompt, np.int64)))
+            slot, self._dev(np.asarray(prompt, np.int64)))
         self.cache = slot_insert(self.cache, slot, s)
         self.pos[s] = pos
         first = int(torch.argmax(logits))

@@ -4,9 +4,11 @@
 The cache structures live with the models
 (:class:`~repro_torch.models.attention.AttnCache`,
 :class:`~repro_torch.models.ssm.SSMCache`,
-:func:`repro_torch.models.api.init_cache`): a dict of stacks, each a
-dataclass whose every tensor carries batch on axis 1, so one rule serves
-attention, SSM and hybrid caches.  This module adds byte accounting per
+:func:`repro_torch.models.api.init_cache`): a dict whose entries are
+stacks — a dataclass of tensors — or bare tensors (the encoder-decoder's
+``cross_k``/``cross_v``), every tensor with batch on axis 1, so one rule
+serves attention, SSM, hybrid and encoder-decoder caches, as the
+reference's ``tree_map`` does.  This module adds byte accounting per
 request slot and single-slot extract/insert, used by the engine to prefill
 one request without touching live slots.
 """
@@ -25,10 +27,19 @@ __all__ = ["cache_bytes", "bytes_per_slot", "slot_view", "slot_insert",
 
 
 def _tensors(c) -> Dict[str, torch.Tensor]:
-    """A cache stack's tensor fields by name (``AttnCache``: k, v;
-    ``SSMCache``: conv, ssm)."""
+    """A cache entry's tensors by name (``AttnCache``: k, v; ``SSMCache``:
+    conv, ssm; a bare tensor: itself, under ``""``)."""
+    if isinstance(c, torch.Tensor):
+        return {"": c}
     return {f.name: getattr(c, f.name) for f in dataclasses.fields(c)
             if isinstance(getattr(c, f.name), torch.Tensor)}
+
+
+def _rebuild(c, tensors: Dict[str, torch.Tensor]):
+    """``c`` with its tensors replaced (:func:`_tensors`' names)."""
+    if isinstance(c, torch.Tensor):
+        return tensors[""]
+    return dataclasses.replace(c, **tensors)
 
 
 def _leaves(cache: Dict[str, object]) -> Iterator[torch.Tensor]:
@@ -52,9 +63,8 @@ def slot_view(cache: Dict[str, object], slot: int) -> Dict[str, object]:
     """A batch=1 view of request ``slot`` (batch is axis 1).  It shares
     storage with ``cache``: a decode step on the view writes the slot in
     place, where the reference's ``dynamic_slice`` is a copy."""
-    return {name: dataclasses.replace(
-                c, **{f: t.narrow(1, slot, 1)
-                      for f, t in _tensors(c).items()})
+    return {name: _rebuild(c, {f: t.narrow(1, slot, 1)
+                               for f, t in _tensors(c).items()})
             for name, c in cache.items()}
 
 

@@ -43,13 +43,19 @@ class AdamWState(NamedTuple):
     v: Dict[str, torch.Tensor]
 
 
+#: the LM stacks the reference stacks on a leading layer axis
+_STACKED = ("layers.", "enc_layers.", "dec_layers.")
+
+
 def decays(name: str, p: torch.Tensor) -> bool:
     """Weight decay on matrices only, judged by the reference's leaf
     shapes: the reference stacks an LM's layers, so a parameter of layer l
-    (``layers.<l>.…``) is one slice of an ``[L, …]`` leaf there and counts
-    that axis — its per-layer norm gains decay, as the reference's do;
-    ``ln_f.g`` and a dict's 1-D leaves do not."""
-    return p.ndim + name.startswith("layers.") >= 2
+    (``layers.<l>.…``, or the encoder-decoder's ``enc_layers.<l>.…`` and
+    ``dec_layers.<l>.…``) is one slice of an ``[L, …]`` leaf there and
+    counts that axis — its per-layer norm gains and biases decay, as the
+    reference's do; ``ln_f.g``, ``enc_ln.g`` and a dict's 1-D leaves do
+    not."""
+    return p.ndim + name.startswith(_STACKED) >= 2
 
 
 def adamw_init(params, cfg: AdamWConfig) -> AdamWState:

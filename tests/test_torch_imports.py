@@ -38,7 +38,8 @@ NEEDED = ("repro_torch.sparse.mtx", "repro_torch.core.shard",
           "repro_torch.train.checkpoint", "repro_torch.train.fault",
           "repro_torch.train.loop", "repro_torch.launch.train",
           "repro_torch.models.moe", "repro_torch.models.ssm",
-          "repro_torch.models.hybrid")
+          "repro_torch.models.hybrid", "repro_torch.models.encdec",
+          "repro_torch.serve.quant_cache")
 
 
 def test_port_imports_neither_jax_nor_reference():

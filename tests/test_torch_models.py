@@ -26,14 +26,16 @@ import pytest
 import torch
 
 import repro.models.attention as RA
+from repro.configs import cells as ref_cells
 from repro.configs import get_config as ref_get_config
+from repro.configs import input_specs as ref_input_specs
 from repro.models import api as ref_api
 from repro.models import layers as RL
 from repro.serve.kv_cache import bytes_per_slot as ref_bytes_per_slot
 
 import repro_torch.models.attention as A
 from repro_torch import convert
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, input_specs
 from repro_torch.models import api
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import FULL_WINDOW, layer_windows
@@ -299,7 +301,7 @@ def test_init_params_draws_the_reference_distribution():
 
 
 @pytest.mark.parametrize("arch", ARCHS[:1] + ["h2o-danube-3-4b",
-                                              "qwen2.5-32b"])
+                                              "qwen2.5-32b", "whisper-base"])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_bytes_per_slot(arch, dtype):
     assert bytes_per_slot(get_config(arch), 1024, getattr(torch, dtype)) \
@@ -310,16 +312,14 @@ def test_bytes_per_slot(arch, dtype):
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-780m",
                                   "zamba2-1.2b", "whisper-base"])
 def test_unported_families_raise(arch):
-    """Only the encoder-decoder family is left to port: it raises and names
-    its queue item; the MoE, SSM and hybrid families, which raised here
-    until they were ported, now build their modules."""
+    """The MoE, SSM, hybrid and encoder-decoder families raised here until
+    they were ported (the test keeps its name); each now builds its
+    module: ``Transformer``, ``Hybrid`` and, for whisper, ``EncDec``."""
+    from repro_torch.models.encdec import EncDec
     cfg = get_config(arch).reduced()
-    if arch == "whisper-base":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9.3"):
-            api.init_params(cfg, torch.Generator(), device="meta")
-    else:
-        model = api.init_params(cfg, torch.Generator(), device="meta")
-        assert isinstance(model, api.model_class(cfg))
+    model = api.init_params(cfg, torch.Generator(), device="meta")
+    assert isinstance(model, api.model_class(cfg))
+    assert isinstance(model, EncDec) == (arch == "whisper-base")
 
 
 @pytest.mark.parametrize("arch", ["granite-34b", "internvl2-76b"])
@@ -353,3 +353,45 @@ def test_lm_cache_to_torch_keeps_bf16_bits():
                                   np.asarray(ref["ring"].k, np.float32))
     np.testing.assert_array_equal(got.v.float().numpy(),
                                   np.asarray(ref["ring"].v, np.float32))
+
+
+def _spec_leaves(tree, prefix=""):
+    """``(path, shape, dtype name)`` of every leaf of an input spec: a
+    cache dict's stacks by their tensor fields, a bare tensor as itself."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _spec_leaves(tree[k], f"{prefix}{k}.")
+    elif hasattr(tree, "shape"):
+        yield prefix[:-1], tuple(tree.shape), str(tree.dtype).split(".")[-1]
+    else:
+        for f in dataclasses.fields(tree):
+            if hasattr(getattr(tree, f.name), "shape"):
+                yield from _spec_leaves(getattr(tree, f.name),
+                                        f"{prefix}{f.name}.")
+
+
+@pytest.mark.parametrize("arch,shape,runs", [
+    (a, s, ok) for a, s, ok, _ in ref_cells()])
+def test_input_specs(arch, shape, runs):
+    """Every (arch × shape) cell: ``meta`` tensors of the reference's
+    shapes (tokens, labels and positions int64, torch's index dtype; the
+    rest the reference's dtypes), nothing allocated; a skipped cell
+    raises as the reference's does."""
+    if not runs:
+        with pytest.raises(ValueError, match="SKIP"):
+            ref_input_specs(arch, shape)
+        with pytest.raises(ValueError, match="SKIP"):
+            input_specs(arch, shape)
+        return
+    want = list(_spec_leaves(ref_input_specs(arch, shape)))
+    specs = input_specs(arch, shape)
+    got = list(_spec_leaves(specs))
+    ints = {"tokens", "labels", "token", "pos"}
+    assert [(p, sh) for p, sh, _ in got] == [(p, sh) for p, sh, _ in want]
+    for (p, _, dt), (_, _, dt_ref) in zip(got, want):
+        assert dt == ("int64" if p in ints else dt_ref), p
+    tensors = [specs[k] for k in specs if k != "cache"]
+    if "cache" in specs:
+        from repro_torch.serve.kv_cache import _leaves
+        tensors += list(_leaves(specs["cache"]))
+    assert all(t.device.type == "meta" for t in tensors)
