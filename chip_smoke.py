@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py        # full size, phases 0-12 (6b, 6c); no options
+    python3 chip_smoke.py        # full size, phases 0-14 (6b, 6c); no options
 
 0. The build: every kernel's registers, stack frame and spills from the
    ptxas report; each ELLPACK instantiation with a register tree
@@ -202,9 +202,35 @@
    256; B 8, 32,768 positions): ``attn_decode_quant`` against
    ``attn_decode`` at bf16 within max |Δ| / max |y| < 0.05, cache bytes
    under 0.6× bf16's, ms a decode call of each.
+13. The paper's Tables 4, 5 and 7 on the card: ``benchmark_suite("all")``
+   (the 12 synthetic stand-ins for Table 3's classes, n up to 10^6)
+   through ``jpcg_solve(method="vsr", backend="pallas")`` (``spmv_ell``,
+   ``phase2``, ``phase3``, ``dot``) at tol 1e-12, maxiter 20,000, at fp64
+   and mixed_v3 on every matrix and at mixed_v2 and mixed_v1 on the small
+   tier (logged with their statuses, not gated).  Every fp64 and mixed_v3
+   solve converges to a true residual ≤ 1e-6 on the host in fp64, repeats
+   bit for bit from a pre-built operator, and on the small tier agrees
+   with ``xla`` (iterations ±1, x within rtol 1e-4, atol 1e-6).  Logged
+   for each: iterations and their difference from fp64 (Table 7), call
+   wall and loop alone (Table 4), ms an iteration and GFLOP/s by the
+   paper's count, 2·nnz + 13·n (Table 5), the loop's share of its
+   analytic bound an iteration (``roofline.solver_terms``: the
+   min-traffic schedule's 13 vector accesses and a value and index a
+   nonzero, over 3.35 TB/s) and of the ELLPACK operand's stored-slot
+   bound (``EllpackMatrix.stream_bytes``), each ≤ 105 %.
+14. Roofline terms of the LM cells measured above (``roofline``, H100
+   peaks, bf16): gemma3-1b's prefill, engine tick and AdamW step,
+   granite-moe's, mamba2's and zamba2's prefill and AdamW step, and
+   whisper's prefill at B 8 × S 4,096.  Each is counted once with
+   ``count_torch`` (every dispatched ATen op: flops, bytes, collective
+   bytes) outside its phase's timed windows, at the phase's shapes, and
+   priced beside the time its phase measured: flops and bytes > 0, the
+   bound over the measured time ≤ 105 %, the useful fraction (model
+   flops, 6·N·D, 2·N·B·S or 2·N·B with N the active parameters, over
+   counted flops) and MFU at the measured time.
 
 Launch counters are set to 0 right before the solves of phases 2, 3, 6,
-6b and 6c and before phases 8, 10, 11 and 12, and read right after; each kernel
+6b and 6c and before phases 8, 10, 11, 12 and 13, and read right after; each kernel
 of a path must have launched on it (6b: ``spmv_sell`` and ``spmv_ellpack``; 6c runs
 the reference's plain banked-ELL product, no kernel; ``dot3`` has no
 solver path: phase 5 launches it; nor have ``spmv_ell`` at
@@ -217,7 +243,8 @@ of 48, phase 11: 48 do not fit one card).
 Any failed check raises, and so does any kernel's time under 95 % of its
 bound.  The last line is the JSON result; before the card's line come the
 sharded and distributed phases' numbers, then the LM path's, the
-training path's, the families' and whisper's.
+training path's, the families', whisper's, the suite's and the
+roofline's.
 """
 from __future__ import annotations
 
@@ -234,10 +261,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-#: H100 SXM peaks: fp64 and fp32 off the tensor cores; bf16 the guide's one
-#: bf16 rate (tensor cores; the tier's SpMVs are bound by bytes either way)
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "bfloat16": 989e12}
 SCHEMES = ("fp64", "mixed_v1", "mixed_v2", "mixed_v3")
 #: the TPU tier (one level down: bf16 values, fp32 vectors); tpu_fp32 runs
 #: mixed_v1's instantiation, tpu_v1..v3 the bf16 ones
@@ -495,8 +518,12 @@ def nbytes(*ts) -> int:
 
 
 def bound_ms(bytes_moved: int, flops: int, acc_dtype) -> tuple:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(acc_dtype).split(".")[-1]] * 1e3
+    """The card's peaks are ``repro_torch.roofline.model.H100``'s (the
+    H100 SXM5 data sheet, dense): fp64 and fp32 off the tensor cores, bf16
+    on them (the tier's SpMVs are bound by bytes either way)."""
+    from repro_torch.roofline.model import H100
+    t_bytes = bytes_moved / H100.hbm_bw * 1e3
+    t_ops = flops / H100.peak_flops(str(acc_dtype)) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1698,7 +1725,6 @@ def phase_distributed(a, dev, single, single_loops):
 
 
 # -------------------------------------------------------------- phase 7
-BF16_TC_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 #: a bf16 output is held to one bf16 ulp of the plain version's (an ulp is
 #: 2^-8 to 2^-7 of |want|), plus a floor for values near 0
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
@@ -1789,14 +1815,15 @@ def _flash_bound(q, k, v, causal, window) -> dict:
     peak; fp32 inputs take both products (4·D) at the fp32 CUDA-core
     peak, since the bf16 tensor cores would round them."""
     import torch
+    from repro_torch.roofline.model import H100
     bh, s, d = q.shape
     pairs = live_pairs(s, k.shape[1], causal, window) * bh
     flops = 2 * d * pairs
-    t_bytes = (2 * nbytes(q) + nbytes(k, v)) / HBM_BYTES_PER_S * 1e3
+    t_bytes = (2 * nbytes(q) + nbytes(k, v)) / H100.hbm_bw * 1e3
     if q.dtype == torch.bfloat16:
-        t_ops = 3 * flops / BF16_TC_FLOPS * 1e3
+        t_ops = 3 * flops / H100.peak_flops("bf16") * 1e3
     else:
-        t_ops = 2 * flops / PEAK_FLOPS["float32"] * 1e3
+        t_ops = 2 * flops / H100.peak_flops("fp32") * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 pairs=pairs)
@@ -1994,6 +2021,8 @@ def phase_lm_forward(dev):
     log(f"  forward_logits(last_only) B=1 S={LM_SEQ} {cfg.dtype}: "
         f"{fwd_s * 1e3:.1f} ms (of {[round(w * 1e3, 1) for w in walls]}) = "
         f"{LM_SEQ / fwd_s:.0f} tokens/s; peak {peak / 2**30:.2f} GiB")
+    cell = _cell(ARCH, f"prefill B1xS{LM_SEQ}", "prefill",
+                 cfg.active_param_count(), 1, LM_SEQ, fwd, fwd_s * 1e3)
 
     gen = torch.Generator().manual_seed(9)
     tokens = torch.randint(0, cfg.vocab, (COMPOSE_BATCH, COMPOSE_SEQ),
@@ -2023,7 +2052,8 @@ def phase_lm_forward(dev):
                 f"{err:.3e}; |y| max {float(want.abs().max()):.3e})")
     del logits
     return params, dict(forward_ms=fwd_s * 1e3, tokens_per_s=LM_SEQ / fwd_s,
-                        init_s=init_s, peak_bytes=peak, compose=worst)
+                        init_s=init_s, peak_bytes=peak, compose=worst,
+                        cell=cell)
 
 
 # -------------------------------------------------------------- phase 9
@@ -2114,6 +2144,9 @@ def phase_engine_lm(params, dev):
         f" cache {row['cache_bytes_per_slot']} B/slot")
     for key, ms, c in sorted(ev, key=lambda e: -e[1])[:6]:
         log(f"      {ms:9.2f} ms {c:6d}x  {key[:80]}")
+    row["cell"] = _cell(ARCH, f"decode tick B{ecfg.batch_slots}", "decode",
+                        cfg.active_param_count(), ecfg.batch_slots, 1,
+                        eng.step, ms_tick)
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     eng32 = DecodeEngine(cfg32, params, EngineConfig(
@@ -2266,6 +2299,10 @@ def phase_train(dev):
         "kernels")
     for key, t, c in sorted(ev, key=lambda e: -e[1])[:6]:
         log(f"      {t:9.2f} ms {c:6d}x  {key[:80]}")
+    row["cell"] = _cell(ARCH, f"train B{TRAIN_BATCH}xS{TRAIN_SEQ}", "train",
+                        cfg.active_param_count(), TRAIN_BATCH, TRAIN_SEQ,
+                        lambda: step_fn(tr2.params, tr2.opt_state, batch,
+                                        ADAMW_STEPS), ms)
 
     # two strided microbatches against the full batch, same parameters
     l1, g1 = loss_and_grads(tr2.params, cfg, batch, 1)
@@ -2636,6 +2673,10 @@ def _family_train(arch, cfg, dev, seed):
         f"{tokens / ms * 1e3:.0f} tokens/s; peak {_gib(peak)}; one profiled "
         f"step: device busy {busy:.1f} ms = {busy / ms:.1%}, "
         f"{row['kernels']} kernels [{time.perf_counter() - _START:.0f} s]")
+    row["cell"] = _cell(arch, f"train B{TRAIN_BATCH}xS{TRAIN_SEQ}", "train",
+                        cfg.active_param_count(), TRAIN_BATCH, TRAIN_SEQ,
+                        lambda: step_fn(tr.params, tr.opt_state, batch,
+                                        FAMILY_TRAIN_STEPS), ms)
     del tr, params
     torch.cuda.empty_cache()
     return row
@@ -2694,6 +2735,9 @@ def phase_families(dev, card):
             f"{[round(w * 1e3, 1) for w in walls]}) = "
             f"{row['forward_tokens_per_s']:.0f} tokens/s; peak "
             f"{_gib(row['forward_peak_bytes'])}")
+        row["cell"] = _cell(arch, f"prefill B1xS{LM_SEQ}", "prefill",
+                            cfg.active_param_count(), 1, LM_SEQ, fwd,
+                            row["forward_ms"])
         del logits
         if arch in compose:
             row["compose_err"] = _family_compose(arch, params, cfg,
@@ -3159,6 +3203,10 @@ def phase_whisper(dev, card) -> dict:
             f"{cfg.encoder.n_ctx} frames, {cfg.dtype}: {min(walls) * 1e3:.1f} ms (of "
             f"{[round(w * 1e3, 1) for w in walls]}) = "
             f"{b * s / min(walls):.0f} tokens/s; peak {_gib(peak)}")
+        if (b, s) == WHISPER_PREFILL[0]:
+            rows["prefill"][f"B{b}xS{s}"]["cell"] = _cell(
+                WHISPER, f"prefill B{b}xS{s}", "prefill",
+                cfg.active_param_count(), b, s, fwd, min(walls) * 1e3)
         del logits, tokens, audio
     rows["compose_err"] = _whisper_compose(params, cfg, dev)
     rows["engine"] = _whisper_serve(params, cfg, dev)
@@ -3167,6 +3215,216 @@ def phase_whisper(dev, card) -> dict:
     rows["train"] = _whisper_train(cfg, dev)
     rows["quant_cache"] = phase_quant_cache(dev)
     return rows
+
+
+# ------------------------------------------------------------- phase 13
+#: the paper's protocol (Tables 4, 5 and 7) over the 12-matrix Table 3
+#: suite: b = 1, x0 = 0, rr < 1e-12, maxiter 20,000, ``vsr`` × ``pallas``;
+#: fp64 and mixed_v3 gated on every matrix, Table 7's other columns on the
+#: small tier logged and not gated
+SUITE_SCHEMES = ("fp64", "mixed_v3")
+SUITE_TABLE7 = ("mixed_v2", "mixed_v1")
+SUITE_MAXITER = 20_000
+
+
+def _exit_status(res, maxiter) -> str:
+    """A single-system solve's exit in the health layer's names (its
+    ``CGResult`` carries none, as the reference's does not): the loop
+    stops on convergence, at ``maxiter``, or on a non-finite ‖r‖²."""
+    if res.converged:
+        return "CONVERGED"
+    if not math.isfinite(res.rr):
+        return "BREAKDOWN_NONFINITE"
+    return "MAXITER" if res.iterations >= maxiter else "STOPPED"
+
+
+def phase_suite(dev) -> dict:
+    """``benchmark_suite("all")`` through ``jpcg_solve(method="vsr",
+    backend="pallas")`` at full size: each solve a call from the CSR and
+    the loop alone on a pre-built operator (Table 4), ms an iteration and
+    GFLOP/s by the paper's count (Table 5), the iterations and their
+    differences from fp64 (Table 7), each loop's share of its analytic
+    bound (``roofline.solver_terms``) and of the ELLPACK operand's
+    stored-slot bound; on the small tier ``pallas`` against ``xla``."""
+    import numpy as np
+    import torch
+    from repro_torch import jpcg_solve
+    from repro_torch.core.precision import get_scheme
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import solver_terms
+    from repro_torch.roofline.model import solver_flops_per_iter
+    from repro_torch.sparse import (benchmark_suite, csr_to_ellpack,
+                                    suite_metadata)
+
+    t0 = time.perf_counter()
+    small = benchmark_suite("small")
+    suite = {**small, **benchmark_suite("large")}
+    meta = suite_metadata()
+    log(f"  {len(suite)} matrices ({len(small)} small) generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows, table7 = [], []
+    for name, a in suite.items():
+        n, nnz = a.shape[0], a.nnz
+        t0 = time.perf_counter()
+        m = csr_to_ellpack(a)
+        diag = a.diagonal()
+        pack_s = time.perf_counter() - t0
+        its = {}
+        schemes = SUITE_SCHEMES + (SUITE_TABLE7 if name in small else ())
+        for scheme in schemes:
+            sch = get_scheme(scheme)
+            kw = dict(method="vsr", backend="pallas", scheme=scheme,
+                      tol=SOLVE_TOL, maxiter=SUITE_MAXITER, device=dev)
+            res, call_s = _single(lambda: jpcg_solve(a, **kw))
+            k = res.iterations
+            res_true = residual(a, res.x)
+            if scheme in SUITE_SCHEMES and not (
+                    res.converged and res_true <= RESIDUAL_MAX):
+                raise AssertionError(
+                    f"suite {name} {scheme}: converged {res.converged} "
+                    f"after {k}, true residual {res_true:.3e}")
+            t0 = time.perf_counter()
+            op = ops.ell_operator_pallas(m, scheme, diag=diag, device=dev)
+            build_s = time.perf_counter() - t0
+            loop, loop_s = _single(lambda: jpcg_solve(op, **kw))
+            if loop.iterations != k or not torch.equal(loop.x, res.x):
+                raise AssertionError(f"suite {name} {scheme}: loop alone "
+                                     f"took {loop.iterations}, the call {k}")
+            its[scheme] = k
+            ms_it = loop_s / k * 1e3
+            terms = solver_terms(a, sch)
+            bound_ms = terms.bound_s * 1e3
+            stored_ms = solver_terms(a, sch, matrix_bytes=m.stream_bytes(
+                value_bytes=sch.matrix_bytes,
+                index_bytes=m.local_cols.dtype.itemsize)).bound_s * 1e3
+            share = _share(f"suite {name} {scheme}", bound_ms, ms_it)
+            stored_share = _share(f"suite {name} {scheme} (stored)",
+                                  stored_ms, ms_it)
+            row = dict(matrix=name, analogue=meta[name], n=n, nnz=nnz,
+                       scheme=scheme, iterations=k, converged=res.converged,
+                       status=_exit_status(res, SUITE_MAXITER),
+                       true_residual=res_true, call_s=call_s,
+                       ellpack_pack_s=pack_s, build_s=build_s,
+                       loop_s=loop_s, ms_per_iter=ms_it,
+                       gflops=solver_flops_per_iter(n, nnz) * k / loop_s
+                       / 1e9,
+                       bound_ms_per_iter=bound_ms, bound_share=share,
+                       bound_by=terms.dominant,
+                       stored_bound_ms_per_iter=stored_ms,
+                       stored_share=stored_share,
+                       padding_efficiency=m.padding_efficiency)
+            if name in small and scheme in SUITE_SCHEMES:
+                rx, xla_s = _single(lambda: jpcg_solve(a, **dict(
+                    kw, backend="xla")))
+                if abs(rx.iterations - k) > 1:
+                    raise AssertionError(f"suite {name} {scheme}: pallas {k}"
+                                         f" vs xla {rx.iterations}")
+                np.testing.assert_allclose(
+                    rx.x.cpu().numpy(), res.x.cpu().numpy(), rtol=1e-4,
+                    atol=1e-6, err_msg=f"suite {name} {scheme} xla")
+                row.update(xla_iterations=rx.iterations, xla_call_s=xla_s)
+            rows.append(row)
+            log(f"  {name} (n {n}, nnz {nnz}) {scheme}: {k} iterations "
+                f"({row['status']}, true "
+                f"residual {res_true:.2e}); call {call_s:.3f} s, loop alone "
+                f"{loop_s:.4f} s = {ms_it:.4f} ms/iteration = "
+                f"{row['gflops']:.2f} GFLOP/s; bound {bound_ms:.5f} ms "
+                f"({share:.1%}), stored-slot bound {stored_ms:.5f} ms "
+                f"({stored_share:.1%})"
+                + (f"; xla {row['xla_iterations']} iterations, x within "
+                   "rtol 1e-4" if "xla_iterations" in row else ""))
+        t7 = dict(matrix=name, iters_fp64=its["fp64"],
+                  iters_v3=its["mixed_v3"],
+                  diff_v3=its["mixed_v3"] - its["fp64"])
+        for scheme, key in (("mixed_v2", "v2"), ("mixed_v1", "v1")):
+            if scheme in its:
+                t7.update({f"iters_{key}": its[scheme],
+                           f"diff_{key}": its[scheme] - its["fp64"]})
+        table7.append(t7)
+        del m, diag
+    log("  Table 7: " + "; ".join(
+        f"{t['matrix']} {t['iters_fp64']}/{t['diff_v3']:+d}" for t in table7))
+    return dict(rows=rows, table7=table7)
+
+
+# ------------------------------------------------------------- phase 14
+def _counted(label, fn) -> dict:
+    """One call of ``fn`` counted op by op (``roofline.count_torch``),
+    outside every timed window."""
+    import torch
+    from repro_torch.roofline import count_torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = count_torch(fn)
+    torch.cuda.synchronize()
+    out = dict(flops=w.flops, transcendentals=w.transcendentals,
+               hbm_bytes=w.hbm_bytes, wire_bytes=w.wire_bytes,
+               collectives=w.collective_count,
+               count_s=time.perf_counter() - t0)
+    log(f"  counted {label}: {w.flops:.4e} flops, {w.hbm_bytes:.4e} B, "
+        f"{w.wire_bytes:.0f} wire B, in {out['count_s']:.1f} s")
+    return out
+
+
+def _cell(arch, shape, kind, n_active, batch, seq, fn, ms) -> dict:
+    """An LM cell for phase 14: its measured ms, its counted cost and its
+    model flops as the reference's dry run takes them (train 6·N·D,
+    prefill 2·N·B·S, decode 2·N·B; N the active parameters)."""
+    from repro_torch.roofline import model_flops_decode, model_flops_train
+    if kind == "train":
+        mf = model_flops_train(n_active, batch * seq)
+    elif kind == "prefill":
+        mf = 2.0 * n_active * batch * seq
+    else:
+        mf = model_flops_decode(n_active, batch)
+    return dict(arch=arch, shape=shape, kind=kind, active_params=n_active,
+                model_flops=mf, ms=ms, cost=_counted(f"{arch} {shape}", fn))
+
+
+def phase_roofline(cells) -> list:
+    """Each LM cell's roofline terms on the H100 at the bf16 peak, beside
+    the time its phase measured: bound over measured (≤ 105 %), the
+    useful fraction, MFU at the measured time and the counted flops'
+    utilisation (counted flops over measured time × peak), which needs
+    no model-flops convention.  Where the model flops exceed the counted
+    ones (useful > 1: a last-token prefill's unembedding, an
+    encoder-decoder's parameters priced per decoder token) the MFU
+    overcounts what the card did, and the row says so."""
+    from repro_torch.roofline import H100, format_table, roofline_terms
+    out = []
+    for c in cells:
+        cost = c["cost"]
+        t = roofline_terms({"flops": cost["flops"],
+                            "bytes accessed": cost["hbm_bytes"]},
+                           cost["wire_bytes"], hw=H100, dtype="bf16",
+                           model_flops=c["model_flops"])
+        label = f"roofline {c['arch']} {c['shape']}"
+        if not (t.flops > 0 and t.hbm_bytes > 0):
+            raise AssertionError(f"{label}: counted {t.flops} flops, "
+                                 f"{t.hbm_bytes} bytes")
+        share = _share(label, t.bound_s * 1e3, c["ms"])
+        row = dict({k: v for k, v in c.items() if k != "cost"},
+                   transcendentals=cost["transcendentals"],
+                   count_s=cost["count_s"], roofline=t.as_dict(),
+                   bound_ms=t.bound_s * 1e3, bound_share=share,
+                   mfu_measured=t.model_flops / (c["ms"] / 1e3
+                                                 * t.peak_flops),
+                   counted_util=t.flops / (c["ms"] / 1e3 * t.peak_flops),
+                   mfu_overcount=t.useful_fraction > 1)
+        out.append(row)
+        log(f"  {c['arch']} {c['shape']}: {t.flops:.4e} flops, "
+            f"{t.hbm_bytes:.4e} B → compute {t.compute_s * 1e3:.3f} ms, "
+            f"memory {t.memory_s * 1e3:.3f} ms ({t.dominant}-bound); "
+            f"measured {c['ms']:.2f} ms = {share:.1%} of the bound; useful "
+            f"{t.useful_fraction:.3f}; MFU {row['mfu_measured']:.1%} "
+            f"measured"
+            + (" (an overcount: useful > 1)" if row["mfu_overcount"]
+               else "")
+            + f", {t.mfu_at_roofline:.1%} at the bound; counted flops at "
+            f"{row['counted_util']:.1%} of the peak")
+    log(format_table([dict(arch=r["arch"], shape=r["shape"],
+                           roofline=r["roofline"]) for r in out]))
+    return out
 
 
 # ------------------------------------------------------------------ main
@@ -3216,7 +3474,8 @@ def main() -> int:
                         "spmv_ell[tpu_v3]"),
              "sharded": ("spmv_sell", "spmv_ellpack"),
              "lm": ("flash_attention",), "families": ("flash_attention",),
-             "whisper": ("flash_attention",)}
+             "whisper": ("flash_attention",),
+             "suite": ("spmv_ell", "dot", "phase2", "phase3")}
     launches = {}
     log_phase("[phase 1] kernels against their plain versions")
     timed = phase_kernels(bag, dev)
@@ -3295,6 +3554,20 @@ def main() -> int:
     launches["whisper"] = ops.launches()
     log(f"  launches {launches['whisper']}")
     whisper["flash_attention"] = phase_whisper_flash(dev)
+    log_phase("[phase 13] the paper's Tables 4, 5 and 7: jpcg_solve over "
+              "the 12-matrix suite")
+    ops.reset_launches()
+    suite = phase_suite(dev)
+    launches["suite"] = ops.launches()
+    log(f"  launches {launches['suite']}")
+    log_phase("[phase 14] roofline terms of the LM cells (H100, bf16)")
+    cells = [lm.pop("cell"), lm["engine"].pop("cell"), train.pop("cell")]
+    for arch in FAMILIES:
+        cells += [families[arch].pop("cell"),
+                  families[arch]["train"].pop("cell")]
+    wb, ws = WHISPER_PREFILL[0]
+    cells.append(whisper["prefill"][f"B{wb}xS{ws}"].pop("cell"))
+    roofline = phase_roofline(cells)
     for path, names in paths.items():
         for name in names:
             if launches[path][name] <= 0:
@@ -3339,6 +3612,8 @@ def main() -> int:
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"families": families}), flush=True)
     print(json.dumps({"whisper": whisper}), flush=True)
+    print(json.dumps({"suite": suite}), flush=True)
+    print(json.dumps({"roofline": roofline}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

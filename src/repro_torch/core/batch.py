@@ -52,7 +52,8 @@ from repro_torch.sparse.stacking import (choose_layout, stack_ellpack,
                                          stack_rowell, stack_sell)
 
 __all__ = ["BatchedCGState", "jpcg_solve_batched", "batched_matvec_rowell",
-           "batched_matvec_sell", "batched_matvec_ellpack", "tree_sum",
+           "batched_matvec_sell", "batched_matvec_ellpack",
+           "batched_matvec_flat", "tree_sum",
            "rounded_products", "stack_operands", "batch_cache_info",
            "batch_cache_clear"]
 
@@ -174,6 +175,31 @@ def batched_matvec_sell(cols, vals, iperm, x, *, groups,
     return torch.gather(y_sorted, 1, iperm).to(scheme.vector_dtype)
 
 
+def batched_matvec_flat(gcols, vals, rows, x, *, n_rows: int,
+                        padded_cols: int,
+                        scheme: PrecisionScheme) -> torch.Tensor:
+    """Batched SpMV over packed nonzero streams, plain PyTorch.
+
+    ``gcols``/``vals``/``rows`` are the ``[G, N]`` stacked streams of
+    :func:`repro_torch.sparse.stacking.stack_flat` as tensors; ``x`` is
+    ``[G, n]``.  Gathers x per nonzero, multiplies at the scheme's
+    accumulate dtype and sums into rows with ``index_put_(accumulate=
+    True)`` (a fixed order on every device).  The reference keeps it as
+    the stream-layout reference implementation; no solver path of
+    either package calls it, and it has no kernel."""
+    acc = scheme.spmv_acc_dtype
+    G = x.shape[0]
+    k = min(x.shape[-1], padded_cols)
+    x_pad = x.new_zeros((G, padded_cols), dtype=scheme.spmv_in_dtype)
+    x_pad[:, :k] = x[:, :k]
+    xg = torch.gather(x_pad, 1, gcols.long())
+    prod = vals.to(acc) * xg.to(acc)
+    lane = torch.arange(G, device=x.device)[:, None].expand_as(prod)
+    y = torch.zeros((G, n_rows), dtype=acc, device=x.device)
+    y.index_put_((lane, rows.long()), prod, accumulate=True)
+    return y.to(scheme.vector_dtype)
+
+
 def batched_matvec_ellpack(tile_cols, vals, local_cols, x, *, col_tile: int,
                            n_col_tiles: int,
                            scheme: PrecisionScheme) -> torch.Tensor:
@@ -190,14 +216,18 @@ def batched_matvec_ellpack(tile_cols, vals, local_cols, x, *, col_tile: int,
 
 
 def _matvec_factory(*, backend, scheme, layout=None, groups=None,
-                    col_tile=None, n_col_tiles=None):
+                    block_rows=None, col_tile=None, n_col_tiles=None):
     """``matvec_of(mat) -> matvec`` closure for one backend + bucket shape,
     shared by the solve runners, the serving stepper and the serving
     warm-up so every path computes the same M1.  ``layout``: ``"rowell"``
     (``mat = (cols, vals)``), ``"sell"`` (``(cols, vals, iperm, table)``
     with static ``groups``; ``table`` the
     :class:`~repro_torch.kernels.spmv.SellTable`) or ``"ellpack"``
-    (``(tile_cols, vals, local_cols)``)."""
+    (``(tile_cols, vals, local_cols)``).  The operands carry their own
+    shapes: ``block_rows``, where given, must equal an ELLPACK operand's
+    tile rows (``vals.shape[-1]``, the kernel's block) or the matvec
+    raises; row-ELL and SELL operands have no row tiles, and there it is
+    ignored, as the reference ignores it."""
     if backend not in ("xla", "pallas"):
         raise ValueError(f"unknown backend {backend!r}")
     layout = layout or ("rowell" if backend == "xla" else "ellpack")
@@ -219,6 +249,12 @@ def _matvec_factory(*, backend, scheme, layout=None, groups=None,
     elif backend == "pallas" and layout == "ellpack":
         def matvec_of(mat):
             tc, v, lc = mat
+            if block_rows is not None and int(v.shape[-1]) != block_rows:
+                raise ValueError(
+                    f"block_rows={block_rows} disagrees with the packed "
+                    f"ELLPACK operand's tile rows ({int(v.shape[-1])}): the "
+                    "kernel takes its block from the operand, so pack with "
+                    "this block_rows or drop the argument")
             return lambda x: batched_matvec_ellpack(
                 tc, v, lc, x, col_tile=col_tile, n_col_tiles=n_col_tiles,
                 scheme=scheme)

@@ -283,6 +283,14 @@ class CompiledProgram:
     def length(self) -> int:
         return int(self.program.shape[0])
 
+    @property
+    def cache_token(self) -> str:
+        """Stable content hash of the (unpadded) program words.  The padded
+        words are what runs, and :func:`~repro_torch.core.isa.program_token`
+        of the padded array keys the runner and stepper caches; two
+        programs with equal ``cache_token`` pad to equal bytes."""
+        return program_token(self.program)
+
     def padded(self, length: int) -> np.ndarray:
         """NOP-pad to ``length`` (programs of one length share one VM)."""
         return pad_program(self.program, length)
@@ -359,7 +367,7 @@ def executable_key(kind: str, *, backend: str, scheme: str, bucket,
                    with_trace: Optional[bool] = None,
                    detect: Optional[bool] = None,
                    program: Optional[np.ndarray] = None,
-                   mesh=None) -> tuple:
+                   mesh=None, block_rows: Optional[int] = None) -> tuple:
     """Canonical cache key for VM/phases runners and steppers.
 
     One function builds every key so the fields that split runners are
@@ -372,12 +380,15 @@ def executable_key(kind: str, *, backend: str, scheme: str, bucket,
     lane mesh or its :func:`~repro_torch.core.shard.mesh_signature`: a
     sharded runner never shares a key with the unsharded one or with
     another mesh size) and — for specialized runners only — the program's
-    :func:`~repro_torch.core.isa.program_token`.
+    :func:`~repro_torch.core.isa.program_token`.  A ``block_rows`` the
+    caller asked to be checked against its operand splits the key too.
     """
     key = (kind, backend, scheme, batch, tuple(np.ravel(bucket).tolist()),
            layout, index_bytes, maxiter, chunk, with_trace,
            int(steps_per_sync), bool(donate),
            None if detect is None else bool(detect), mesh_signature(mesh))
+    if block_rows is not None:
+        key += (("block_rows", int(block_rows)),)
     if program is not None:
         key += (program_token(np.asarray(program, np.int32)),)
     return key

@@ -109,6 +109,24 @@ class PrecisionScheme:
         :data:`BF16_CARRIER`, the bit patterns)."""
         return _HOST[self.matrix_dtype]
 
+    @property
+    def matrix_bytes(self) -> int:
+        return self.matrix_dtype.itemsize
+
+    @property
+    def vector_bytes(self) -> int:
+        return self.vector_dtype.itemsize
+
+    def nonzero_stream_bytes(self, index_bytes: int = 2) -> int:
+        """Bytes per nonzero in the matrix stream: one value at
+        ``matrix_dtype`` plus one local column index (int16 while the
+        bucketed row count stays under 2^15, int32 beyond; pass the real
+        width, :func:`repro_torch.sparse.stacking.index_bytes_for`).  The
+        row index is the lane position, so it costs nothing; padding is
+        measured on the stacked arrays (``stream_bytes_per_nnz()``), not
+        modelled here."""
+        return self.matrix_bytes + index_bytes
+
 
 _f64, _f32, _bf16 = torch.float64, torch.float32, torch.bfloat16
 

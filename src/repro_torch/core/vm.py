@@ -365,7 +365,8 @@ def _spec_body(plan: _ProgramPlan, matvec, tol, maxiter_vec=None, *,
 
 # -------------------------------------------------------------- runners
 def make_vm_runner(*, backend, scheme, maxiter, with_trace, layout=None,
-                   groups=None, col_tile=None, n_col_tiles=None,
+                   groups=None, block_rows=None, col_tile=None,
+                   n_col_tiles=None,
                    steps_per_sync: int = 8, detect: bool = True,
                    program: Optional[np.ndarray] = None, mesh=None):
     """Solve-to-completion VM runner for one bucket.
@@ -381,12 +382,15 @@ def make_vm_runner(*, backend, scheme, maxiter, with_trace, layout=None,
     (:mod:`repro_torch.core.shard`) the operands are the
     :class:`~repro_torch.core.shard.Shards` that ``place_lanes`` lays out
     and the result is one state per lane shard, bit for bit the unsharded
-    run's lanes.
+    run's lanes.  ``block_rows`` is checked against an ELLPACK operand's
+    tile rows and raises ``ValueError`` on a mismatch (row-ELL and SELL
+    operands have no row tiles: there it is ignored, as in the reference).
     """
     scheme = get_scheme(scheme)
     matvec_of = _matvec_factory(backend=backend, scheme=scheme,
                                 layout=layout, groups=groups,
-                                col_tile=col_tile, n_col_tiles=n_col_tiles)
+                                block_rows=block_rows, col_tile=col_tile,
+                                n_col_tiles=n_col_tiles)
 
     def cond(s):
         return (s.k < maxiter) & s.active.any()
@@ -424,8 +428,8 @@ def make_vm_runner(*, backend, scheme, maxiter, with_trace, layout=None,
 
 
 def make_vm_stepper(*, backend, scheme, bucket, chunk, layout=None,
-                    groups=None, index_bytes=None, col_tile=None,
-                    n_col_tiles=None, steps_per_sync: int = 8,
+                    groups=None, index_bytes=None, block_rows=None,
+                    col_tile=None, n_col_tiles=None, steps_per_sync: int = 8,
                     donate: bool = False, detect: bool = True,
                     program: Optional[np.ndarray] = None, mesh=None):
     """Bounded VM stepper for incremental serving (``SolverEngine``): each
@@ -445,17 +449,19 @@ def make_vm_stepper(*, backend, scheme, bucket, chunk, layout=None,
     ``mat``, ``state``, ``tol`` and ``maxiter_vec`` are
     :class:`~repro_torch.core.shard.Shards` (``place_lanes``,
     ``place_vm_state``), and so is the returned state; the mesh signature
-    joins the cache key.
+    joins the cache key.  ``block_rows`` is checked as
+    :func:`make_vm_runner` checks it, and joins the key when given.
     """
     scheme = get_scheme(scheme)
     inner = max(1, min(int(steps_per_sync), int(chunk)))
     key_kw = dict(backend=backend, scheme=scheme.name, bucket=bucket,
                   layout=layout, index_bytes=index_bytes, chunk=chunk,
                   steps_per_sync=inner, donate=donate, detect=detect,
-                  mesh=mesh)
+                  mesh=mesh, block_rows=block_rows)
     matvec_of = _matvec_factory(backend=backend, scheme=scheme,
                                 layout=layout, groups=groups,
-                                col_tile=col_tile, n_col_tiles=n_col_tiles)
+                                block_rows=block_rows, col_tile=col_tile,
+                                n_col_tiles=n_col_tiles)
 
     def advance(make_tick, mat, state, tol, maxiter_vec):
         states, ticks, conds = [], [], []

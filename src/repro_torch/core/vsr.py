@@ -25,7 +25,7 @@ import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
 __all__ = ["Module", "JPCG_MODULES", "LOOP_CARRIED", "schedule",
-           "VSRSchedule"]
+           "access_counts", "VSRSchedule"]
 
 #: loop-carried vectors: produced as v', consumed next iteration as v.
 LOOP_CARRIED = {"r'": "r", "p'": "p", "x'": "x"}
@@ -66,6 +66,18 @@ class VSRSchedule:
     streamed: Tuple[Tuple[str, ...], ...]    # vectors handed off on-chip per phase
     recomputed: Tuple[str, ...]              # modules re-executed in a later phase
     never_stored: Tuple[str, ...]            # vectors that never touch HBM
+
+    @property
+    def n_reads(self) -> int:
+        return sum(len(r) for r in self.hbm_reads)
+
+    @property
+    def n_writes(self) -> int:
+        return sum(len(w) for w in self.hbm_writes)
+
+    @property
+    def n_accesses(self) -> int:
+        return self.n_reads + self.n_writes
 
 
 def _earliest_levels(modules: Sequence[Module]) -> Dict[str, int]:
@@ -258,3 +270,17 @@ def schedule(modules: Sequence[Module] = JPCG_MODULES,
                        streamed=tuple(streamed), recomputed=tuple(recomputed),
                        never_stored=tuple(dict.fromkeys(never_stored)))
 
+
+def access_counts(modules: Sequence[Module] = JPCG_MODULES
+                  ) -> Dict[str, Dict[str, int]]:
+    """Paper §5.5 accounting: naive 19 (14R+5W), paper-VSR 14 (10R+4W),
+    and the min-traffic schedule 13 (9R+4W)."""
+    naive_reads = sum(len(m.reads) for m in modules)
+    naive_writes = sum(len(m.writes) for m in modules)
+    out = {"naive": {"reads": naive_reads, "writes": naive_writes,
+                     "total": naive_reads + naive_writes}}
+    for pol in ("paper", "min_traffic"):
+        s = schedule(modules, policy=pol)
+        out[pol] = {"reads": s.n_reads, "writes": s.n_writes,
+                    "total": s.n_accesses}
+    return out

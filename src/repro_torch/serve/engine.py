@@ -109,9 +109,12 @@ class DecodeEngine:
 
     # ------------------------------------------------------------ public
     def add_request(self, prompt: List[int], max_new: int = 32,
-                    audio_embeds: Optional[torch.Tensor] = None) -> int:
+                    audio_embeds: Optional[torch.Tensor] = None,
+                    patch_embeds=None) -> int:
         """Admit a request into a free slot; returns the slot id.  An
-        encoder-decoder config needs ``audio_embeds`` [n_ctx, d_model]."""
+        encoder-decoder config needs ``audio_embeds`` [n_ctx, d_model].
+        ``patch_embeds`` is accepted and ignored, as the reference's engine
+        ignores it: decoding reads tokens only."""
         free = np.flatnonzero(~self.active)
         if free.size == 0:
             raise RuntimeError("no free slots")

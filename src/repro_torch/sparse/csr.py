@@ -41,6 +41,10 @@ class CSRMatrix:
     def dtype(self):
         return self.data.dtype
 
+    def astype(self, dtype) -> "CSRMatrix":
+        return CSRMatrix(self.indptr, self.indices, self.data.astype(dtype),
+                         self.shape)
+
     def diagonal(self) -> np.ndarray:
         """Extract the main diagonal (the Jacobi preconditioner source)."""
         n = min(self.shape)
@@ -52,6 +56,29 @@ class CSRMatrix:
 
     def row_nnz(self) -> np.ndarray:
         return np.diff(self.indptr)
+
+    def is_symmetric(self, tol: float = 0.0) -> bool:
+        """Structural + value symmetry check (dense fallback for small n)."""
+        if self.n_rows != self.n_cols:
+            return False
+        if self.n_rows <= 4096:
+            d = csr_to_dense(self)
+            return bool(np.allclose(d, d.T, atol=tol, rtol=0.0))
+        # sampled check for large matrices
+        rng = np.random.default_rng(0)
+        rows = rng.integers(0, self.n_rows, size=512)
+        for i in rows:
+            for k in range(self.indptr[i], self.indptr[i + 1]):
+                j = self.indices[k]
+                v = self.data[k]
+                row_j = slice(self.indptr[j], self.indptr[j + 1])
+                hit = np.searchsorted(self.indices[row_j], i)
+                base = self.indptr[j] + hit
+                if hit >= self.indptr[j + 1] - self.indptr[j] or self.indices[base] != i:
+                    return False
+                if abs(self.data[base] - v) > tol:
+                    return False
+        return True
 
 
 def csr_from_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,

@@ -21,9 +21,10 @@ from typing import Tuple
 
 import numpy as np
 
+from repro_torch.core.precision import host_values
 from repro_torch.sparse.csr import CSRMatrix
 
-__all__ = ["EllpackMatrix", "csr_to_ellpack"]
+__all__ = ["EllpackMatrix", "csr_to_ellpack", "ellpack_spmv_reference"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -65,6 +66,28 @@ class EllpackMatrix:
     @property
     def n_col_tiles(self) -> int:
         return self.padded_cols // self.col_tile
+
+    @property
+    def stored_entries(self) -> int:
+        return int(np.prod(self.vals.shape))
+
+    @property
+    def padding_efficiency(self) -> float:
+        return self.nnz / max(1, self.stored_entries)
+
+    def astype(self, dtype) -> "EllpackMatrix":
+        """Values at a host dtype (:data:`~repro_torch.core.precision
+        .BF16_CARRIER`: bf16 bit patterns, rounded as the reference's
+        ``astype(jnp.bfloat16)``)."""
+        return dataclasses.replace(self, vals=host_values(self.vals, dtype))
+
+    def stream_bytes(self, value_bytes: int | None = None,
+                     index_bytes: int = 2) -> int:
+        """Bytes one SpMV streams for the matrix operand: a value and one
+        local column index per stored entry (rows are implicit)."""
+        if value_bytes is None:
+            value_bytes = self.vals.dtype.itemsize
+        return self.stored_entries * (value_bytes + index_bytes)
 
 
 def csr_to_ellpack(a: CSRMatrix, *, block_rows: int = 256,
@@ -131,3 +154,20 @@ def csr_to_ellpack(a: CSRMatrix, *, block_rows: int = 256,
     return EllpackMatrix(tile_cols, vals, lcols, a.shape, block_rows,
                          col_tile, a.nnz)
 
+
+def ellpack_spmv_reference(m: EllpackMatrix, x: np.ndarray,
+                           out_dtype=np.float64) -> np.ndarray:
+    """Golden numpy SpMV over the ELLPACK layout (kernel dataflow order)."""
+    x_pad = np.zeros(m.padded_cols, dtype=out_dtype)
+    x_pad[: x.shape[0]] = x.astype(out_dtype)
+    y = np.zeros(m.padded_rows, dtype=out_dtype)
+    R, C = m.block_rows, m.col_tile
+    for i in range(m.n_row_blocks):
+        acc = np.zeros(R, dtype=out_dtype)
+        for t in range(m.n_slabs):
+            xt = x_pad[int(m.tile_cols[i, t]) * C:][:C]
+            for e in range(m.ell):
+                acc += (m.vals[i, t, e].astype(out_dtype)
+                        * xt[m.local_cols[i, t, e]])
+        y[i * R:(i + 1) * R] = acc
+    return y[: m.shape[0]]

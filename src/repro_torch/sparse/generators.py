@@ -12,8 +12,13 @@ SuiteSparse is not reachable offline, so these generators reproduce the
   separate Mix-V1/V2 from Mix-V3 in the paper's Fig. 9).
 * ``tridiagonal_spd`` — 1-D Poisson, exact spectrum known (κ controllable),
   used by property tests.
+* ``benchmark_suite`` — the named problem set, small and large tiers
+  mirroring Table 3's M1–M18 (3.9k–23k rows) and M19–M36 (123k–1.56M
+  rows).
 """
 from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 
@@ -21,7 +26,8 @@ from repro_torch.sparse.csr import CSRMatrix, csr_from_coo
 
 __all__ = [
     "poisson_2d", "poisson_3d", "tridiagonal_spd", "random_spd",
-    "diag_dominant_spd", "powerlaw_spd",
+    "diag_dominant_spd", "powerlaw_spd", "benchmark_suite",
+    "suite_metadata",
 ]
 
 
@@ -168,3 +174,36 @@ def random_spd(n: int, cond: float = 1e4, seed: int = 0,
     a = (a + a.T) / 2
     rows, cols = np.nonzero(np.ones_like(a, dtype=bool))
     return csr_from_coo(rows, cols, a[rows, cols].astype(dtype), (n, n))
+
+
+# name -> (factory, kwargs, paper_analogue)
+_SUITE: Dict[str, Tuple[Callable[..., CSRMatrix], dict, str]] = {
+    # Table 3 M1–M18 class: medium rows, structural / ill-conditioned.
+    "tri_small":      (tridiagonal_spd, dict(n=4096), "ted_B (10.6k, easy)"),
+    "struct_easy":    (diag_dominant_spd, dict(n=5000, nnz_per_row=40, dominance=2.0, seed=1), "cbuckle class"),
+    "struct_hard":    (diag_dominant_spd, dict(n=5357, nnz_per_row=38, dominance=1.01, seed=2), "s3rmt3m3 class (hard)"),
+    "struct_med":     (diag_dominant_spd, dict(n=17361, nnz_per_row=58, dominance=1.08, seed=3), "gyro_k class"),
+    "poisson2d_64":   (poisson_2d, dict(nx=64), "small thermal"),
+    "poisson2d_132":  (poisson_2d, dict(nx=132), "bodyy4 class (17.5k)"),
+    "powerlaw_skew":  (powerlaw_spd, dict(n=4096, alpha=2.1, seed=5), "HBM-skew class (power-law degree)"),
+    # Table 3 M19–M36 class: large rows, 2D/3D problems.
+    "poisson2d_500":  (poisson_2d, dict(nx=500), "thermal mid (250k)"),
+    "poisson2d_1000": (poisson_2d, dict(nx=1000), "ecology2 class (1.0M rows)"),
+    "poisson3d_50":   (poisson_3d, dict(n_side=50), "offshore class (125k)"),
+    "poisson3d_100":  (poisson_3d, dict(n_side=100), "Serena class (1.0M, 3D)"),
+    "struct_large":   (diag_dominant_spd, dict(n=148770, nnz_per_row=70, dominance=1.1, seed=4), "bmwcra_1 class"),
+}
+
+
+def benchmark_suite(tier: str = "all") -> Dict[str, CSRMatrix]:
+    """Materialize the named suite. tier ∈ {small, large, all}."""
+    small = ["tri_small", "struct_easy", "struct_hard", "struct_med",
+             "poisson2d_64", "poisson2d_132", "powerlaw_skew"]
+    large = ["poisson2d_500", "poisson2d_1000", "poisson3d_50",
+             "poisson3d_100", "struct_large"]
+    names = {"small": small, "large": large, "all": small + large}[tier]
+    return {k: _SUITE[k][0](**_SUITE[k][1]) for k in names}
+
+
+def suite_metadata() -> Dict[str, str]:
+    return {k: v[2] for k, v in _SUITE.items()}

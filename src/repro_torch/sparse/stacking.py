@@ -1,5 +1,5 @@
-"""Batched padding / stacking of sparse layouts (a copy of the part of
-:mod:`repro.sparse.stacking` the batched solver path uses).
+"""Batched padding / stacking of sparse layouts (a copy of
+:mod:`repro.sparse.stacking`).
 
 The batched JPCG engine (:mod:`repro_torch.core.batch`) solves B
 independent systems in one masked loop, so every lane's matrix shares one
@@ -23,12 +23,15 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from repro_torch.core.precision import host_values
+from repro_torch.sparse.bell import BellMatrix
 from repro_torch.sparse.ellpack import EllpackMatrix
 
-__all__ = ["bucket_up", "lane_bucket_up", "pad_ellpack", "stack_ellpack",
-           "csr_rowell", "stack_rowell", "stack_sell", "StackedEllpack",
-           "StackedRowEll", "StackedSell", "sell_slice_widths",
-           "index_dtype", "rowell_padding_ratio", "choose_layout",
+__all__ = ["bucket_up", "lane_bucket_up", "pad_bell", "stack_bell",
+           "pad_ellpack", "stack_ellpack", "flatten_bell", "stack_flat",
+           "csr_rowell", "stack_rowell", "stack_sell", "StackedBell",
+           "StackedEllpack", "StackedFlat", "StackedRowEll", "StackedSell",
+           "sell_slice_widths", "index_dtype", "index_bytes_for",
+           "rowell_padding_ratio", "choose_layout",
            "SELL_PADDING_THRESHOLD", "SELL_SLICE_ROWS"]
 
 
@@ -64,6 +67,22 @@ def _pad_axis(a: np.ndarray, axis: int, size: int) -> np.ndarray:
     return np.pad(a, widths)
 
 
+def pad_bell(m: BellMatrix, *, n_row_blocks: int, n_slabs: int,
+             slab_len: int) -> BellMatrix:
+    """Zero-pad a flat-slab banked-ELL matrix to the given structural dims."""
+    def pad3(a):
+        a = _pad_axis(a, 0, n_row_blocks)
+        a = _pad_axis(a, 1, n_slabs)
+        return _pad_axis(a, 2, slab_len)
+
+    return dataclasses.replace(
+        m,
+        tile_cols=_pad_axis(_pad_axis(m.tile_cols, 0, n_row_blocks), 1, n_slabs),
+        vals=pad3(m.vals),
+        local_rows=pad3(m.local_rows),
+        local_cols=pad3(m.local_cols))
+
+
 def pad_ellpack(m: EllpackMatrix, *, n_row_blocks: int, n_slabs: int,
                 ell: int) -> EllpackMatrix:
     """Zero-pad a slot-major ELLPACK matrix to the given structural dims."""
@@ -80,6 +99,33 @@ def pad_ellpack(m: EllpackMatrix, *, n_row_blocks: int, n_slabs: int,
 
 
 @dataclasses.dataclass(frozen=True)
+class StackedBell:
+    """B flat-slab banked-ELL matrices padded to one shape, stacked on axis 0."""
+
+    tile_cols: np.ndarray   # int32[G, B, T]
+    vals: np.ndarray        # v[G, B, T, L]
+    local_rows: np.ndarray  # int32[G, B, T, L]
+    local_cols: np.ndarray  # int32[G, B, T, L]
+    shapes: Tuple[Tuple[int, int], ...]   # logical per-lane shapes
+    nnzs: Tuple[int, ...]
+    block_rows: int
+    col_tile: int
+    n_col_tiles: int        # shared padded x-tile count
+
+    @property
+    def batch(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
+    def padded_rows(self) -> int:
+        return int(self.vals.shape[1]) * self.block_rows
+
+    @property
+    def padded_cols(self) -> int:
+        return self.n_col_tiles * self.col_tile
+
+
+@dataclasses.dataclass(frozen=True)
 class StackedEllpack:
     """B slot-major ELLPACK matrices padded to one shape, stacked on axis 0."""
 
@@ -93,8 +139,46 @@ class StackedEllpack:
     n_col_tiles: int
 
     @property
+    def batch(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
     def padded_rows(self) -> int:
         return int(self.vals.shape[1]) * self.block_rows
+
+    @property
+    def padded_cols(self) -> int:
+        return self.n_col_tiles * self.col_tile
+
+
+def stack_bell(mats: Sequence[BellMatrix], *, bucket: bool = True) -> StackedBell:
+    """Pad a heterogeneous list of BellMatrix to one (bucketed) shape and stack.
+
+    All inputs must share ``block_rows``/``col_tile`` (they parameterize
+    the kernel, not the problem).  With ``bucket=True`` every structural
+    dim is rounded up to a power-of-two edge so different batches of
+    similar problems reuse the same compiled solver.
+    """
+    if not mats:
+        raise ValueError("stack_bell needs at least one matrix")
+    r, c = mats[0].block_rows, mats[0].col_tile
+    for m in mats:
+        if (m.block_rows, m.col_tile) != (r, c):
+            raise ValueError("all matrices must share block_rows/col_tile")
+    rnd = bucket_up if bucket else (lambda x, minimum=1: max(int(x), minimum))
+    B = rnd(max(m.n_row_blocks for m in mats))
+    T = rnd(max(m.n_slabs for m in mats))
+    L = rnd(max(m.slab_len for m in mats))
+    n_tiles = rnd(max(m.n_col_tiles for m in mats))
+    padded = [pad_bell(m, n_row_blocks=B, n_slabs=T, slab_len=L) for m in mats]
+    return StackedBell(
+        tile_cols=np.stack([m.tile_cols for m in padded]),
+        vals=np.stack([m.vals for m in padded]),
+        local_rows=np.stack([m.local_rows for m in padded]),
+        local_cols=np.stack([m.local_cols for m in padded]),
+        shapes=tuple(m.shape for m in mats),
+        nnzs=tuple(m.nnz for m in mats),
+        block_rows=r, col_tile=c, n_col_tiles=n_tiles)
 
 
 def stack_ellpack(mats: Sequence[EllpackMatrix], *,
@@ -125,6 +209,86 @@ def stack_ellpack(mats: Sequence[EllpackMatrix], *,
         block_rows=r, col_tile=c, n_col_tiles=n_tiles)
 
 
+def flatten_bell(m: BellMatrix):
+    """Flatten a banked-ELL matrix to its packed nonzero stream.
+
+    Returns ``(global_cols, vals, rows)`` int32/value/int32 1-D arrays —
+    the closest host-side analogue of the Serpens/Callipepla per-channel
+    packed (col, row, val) stream.  Padding entries carry
+    ``(0, 0.0, 0)``: they add ``0 · x[0]`` to row 0, so a flat stream
+    can be zero-extended to ANY length without changing the product, so
+    a stack of streams buckets only this one dimension.
+    """
+    C, R = m.col_tile, m.block_rows
+    gcols = (m.tile_cols[:, :, None] * C + m.local_cols).reshape(-1)
+    blk = np.arange(m.n_row_blocks, dtype=np.int64)[:, None, None]
+    rows = (blk * R + m.local_rows).reshape(-1)
+    return (gcols.astype(np.int32), m.vals.reshape(-1).copy(),
+            rows.astype(np.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedFlat:
+    """B packed nonzero streams padded to one length, stacked on axis 0.
+
+    The operand of :func:`repro_torch.core.batch.batched_matvec_flat`
+    (no solver path uses it): bucketing the *stream length* (one
+    dimension) instead of (row blocks × slabs × slab len) independently
+    keeps padding waste ≤ 2× per lane where the 3-D bucket compounds to
+    ~8×.
+    """
+
+    gcols: np.ndarray       # int32[G, N] global column per nonzero
+    vals: np.ndarray        # v[G, N]
+    rows: np.ndarray        # int32[G, N] global (padded) row per nonzero
+    shapes: Tuple[Tuple[int, int], ...]
+    nnzs: Tuple[int, ...]
+    block_rows: int
+    col_tile: int
+    n_row_blocks: int       # shared (bucketed) row-block count
+    n_col_tiles: int
+
+    @property
+    def batch(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
+    def padded_rows(self) -> int:
+        return self.n_row_blocks * self.block_rows
+
+    @property
+    def padded_cols(self) -> int:
+        return self.n_col_tiles * self.col_tile
+
+
+def stack_flat(mats: Sequence[BellMatrix], *, bucket: bool = True) -> StackedFlat:
+    """Flatten + pad + stack banked-ELL matrices as packed nonzero streams."""
+    if not mats:
+        raise ValueError("stack_flat needs at least one matrix")
+    r, c = mats[0].block_rows, mats[0].col_tile
+    for m in mats:
+        if (m.block_rows, m.col_tile) != (r, c):
+            raise ValueError("all matrices must share block_rows/col_tile")
+    rnd = bucket_up if bucket else (lambda x, minimum=1: max(int(x), minimum))
+    flats = [flatten_bell(m) for m in mats]
+    N = rnd(max(f[0].shape[0] for f in flats))
+    B = rnd(max(m.n_row_blocks for m in mats))
+    n_tiles = rnd(max(m.n_col_tiles for m in mats))
+    G = len(mats)
+    gcols = np.zeros((G, N), np.int32)
+    vals = np.zeros((G, N), mats[0].vals.dtype)
+    rows = np.zeros((G, N), np.int32)
+    for g, (gc, v, rw) in enumerate(flats):
+        gcols[g, : gc.shape[0]] = gc
+        vals[g, : v.shape[0]] = v
+        rows[g, : rw.shape[0]] = rw
+    return StackedFlat(gcols, vals, rows,
+                       shapes=tuple(m.shape for m in mats),
+                       nnzs=tuple(m.nnz for m in mats),
+                       block_rows=r, col_tile=c, n_row_blocks=B,
+                       n_col_tiles=n_tiles)
+
+
 # ---------------------------------------------------------- row-major ELL
 
 #: Above this row-ELL padding ratio (Σ n·W / Σ nnz over the bag, with W
@@ -144,6 +308,12 @@ def index_dtype(n_pad: int) -> np.dtype:
     index fits in a signed 16-bit lane (``n_pad < 2^15``), else
     ``int32`` — the narrow-index half of the nonzero stream budget."""
     return np.dtype(np.int16 if int(n_pad) < (1 << 15) else np.int32)
+
+
+def index_bytes_for(n: int) -> int:
+    """Stream bytes per stored column index for an ``n``-row problem
+    once bucketed — what the roofline/byte accounting should charge."""
+    return int(index_dtype(bucket_up(n)).itemsize)
 
 
 def rowell_padding_ratio(csrs: Sequence) -> float:
@@ -219,12 +389,30 @@ class StackedRowEll:
     nnzs: Tuple[int, ...]
 
     @property
+    def batch(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
     def padded_rows(self) -> int:
         return int(self.vals.shape[2])
 
     @property
     def width(self) -> int:
         return int(self.vals.shape[1])
+
+    @property
+    def padding_ratio(self) -> float:
+        """Stored slots per logical nonzero (1.0 = no padding)."""
+        return self.vals.size / max(sum(self.nnzs), 1)
+
+    @property
+    def index_bytes(self) -> int:
+        return int(self.cols.dtype.itemsize)
+
+    def stream_bytes_per_nnz(self) -> float:
+        """Measured at-rest matrix-stream bytes (values + indices, all
+        padding included) per logical nonzero."""
+        return (self.vals.nbytes + self.cols.nbytes) / max(sum(self.nnzs), 1)
 
 
 def stack_rowell(csrs: Sequence, *, bucket: bool = True,
@@ -297,8 +485,30 @@ class StackedSell:
     lane_widths: np.ndarray  # int32[G, n_slices] per-lane exact widths
 
     @property
+    def batch(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
     def padded_rows(self) -> int:
         return int(self.iperm.shape[1])
+
+    @property
+    def total_slots(self) -> int:
+        return int(self.vals.shape[1])
+
+    @property
+    def padding_ratio(self) -> float:
+        """Stored slots per logical nonzero (1.0 = no padding)."""
+        return self.vals.size / max(sum(self.nnzs), 1)
+
+    @property
+    def index_bytes(self) -> int:
+        return int(self.cols.dtype.itemsize)
+
+    def stream_bytes_per_nnz(self) -> float:
+        """Measured at-rest matrix-stream bytes (values + indices, all
+        padding included) per logical nonzero."""
+        return (self.vals.nbytes + self.cols.nbytes) / max(sum(self.nnzs), 1)
 
 
 def sell_slice_widths(csrs: Sequence, *, n_pad: int,

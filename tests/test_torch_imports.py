@@ -39,7 +39,9 @@ NEEDED = ("repro_torch.sparse.mtx", "repro_torch.core.shard",
           "repro_torch.train.loop", "repro_torch.launch.train",
           "repro_torch.models.moe", "repro_torch.models.ssm",
           "repro_torch.models.hybrid", "repro_torch.models.encdec",
-          "repro_torch.serve.quant_cache")
+          "repro_torch.serve.quant_cache", "repro_torch.roofline",
+          "repro_torch.roofline.model", "repro_torch.roofline.torch_cost",
+          "repro_torch.roofline.collectives", "repro_torch.roofline.report")
 
 
 def test_port_imports_neither_jax_nor_reference():

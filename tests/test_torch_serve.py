@@ -194,3 +194,38 @@ def test_engine_defaults_to_cuda_and_refuses_without_card(monkeypatch):
     params = init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DecodeEngine(cfg, params, EngineConfig())
+
+
+def test_add_request_accepts_and_ignores_patch_embeds(models):
+    """``add_request(..., patch_embeds=)``, as the reference's engine takes
+    it: accepted and ignored, the prefill logits, tokens and cache
+    unchanged."""
+    rc, rp, pc, tp = models["gemma3-1b-mixed"]
+
+    def serve(**kw):
+        eng = DecodeEngine(pc, tp, EngineConfig(batch_slots=1, max_len=32,
+                                                cache_dtype="float32",
+                                                device="cpu"))
+        logits, prefill = [], eng._prefill
+
+        def recorded(*args):
+            out = prefill(*args)
+            logits.append(out[2])
+            return out
+
+        eng._prefill = recorded
+        s = eng.add_request([3, 1, 4, 1, 5], max_new=4, **kw)
+        eng.run_to_completion()
+        leaves = [t for c in eng.cache.values() for t in (
+            [c] if isinstance(c, torch.Tensor) else
+            [getattr(c, f.name) for f in dataclasses.fields(c)])
+            if isinstance(t, torch.Tensor)]
+        return logits[0], eng.outputs[s], leaves
+
+    logits, tokens, cache = serve()
+    patch = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (4, pc.d_model)).astype(np.float32))
+    logits_p, tokens_p, cache_p = serve(patch_embeds=patch)
+    assert torch.equal(logits_p, logits) and tokens_p == tokens
+    assert len(cache_p) == len(cache) > 0
+    assert all(torch.equal(a, b) for a, b in zip(cache, cache_p))

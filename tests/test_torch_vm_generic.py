@@ -331,3 +331,54 @@ def test_mtx_rejects_other_formats(tmp_path):
     path.write_text("not a matrix\n")
     with pytest.raises(ValueError):
         read_mtx(path)
+
+
+# ------------------------------------------------------------- block_rows
+@pytest.mark.parametrize("specialize", [True, False])
+def test_vm_runner_and_stepper_take_block_rows(specialize):
+    """``make_vm_runner`` / ``make_vm_stepper(block_rows=)``, which the
+    reference takes: a value equal to the packed ELLPACK operand's tile
+    rows runs bit for bit as without it; another raises ``ValueError``
+    with the reason."""
+    from repro_torch.core.batch import (_matvec_factory, _pad_stack,
+                                        stack_operands)
+    from repro_torch.core.precision import get_scheme
+    from repro_torch.core.vm import make_vm_runner, make_vm_stepper, vm_init
+    sch = get_scheme("mixed_v3")
+    csrs = [port_sparse.poisson_2d(12), port_sparse.tridiagonal_spd(100)]
+    mat, stacked, _, n_ct, dims = stack_operands(
+        csrs, backend="pallas", layout="ellpack", scheme=sch, device="cpu",
+        **BK)
+    n_pad, vd, G = stacked.padded_rows, sch.vector_dtype, len(csrs)
+    diag = _pad_stack([a.diagonal() for a in csrs], n_pad, 1.0, vd, "cpu")
+    b = _pad_stack([np.ones(a.shape[0]) for a in csrs], n_pad, 0.0, vd,
+                   "cpu")
+    x0 = torch.zeros((G, n_pad), dtype=vd)
+    tol = torch.full((G,), TOL, dtype=vd)
+    prog = canonical_program("paper")
+    head = () if specialize else (prog,)
+    kw = dict(backend="pallas", scheme=sch, layout="ellpack",
+              col_tile=BK["col_tile"], n_col_tiles=n_ct,
+              program=prog if specialize else None)
+
+    def solve(**extra):
+        run = make_vm_runner(maxiter=500, with_trace=False, **kw, **extra)
+        return run(*head, mat, diag, b, x0, tol)
+
+    want = solve()
+    assert_vm_states_equal(solve(block_rows=BK["block_rows"]), want)
+    with pytest.raises(ValueError, match="tile rows"):
+        solve(block_rows=2 * BK["block_rows"])
+
+    def step(**extra):
+        mv = _matvec_factory(backend="pallas", scheme=sch, layout="ellpack",
+                             col_tile=BK["col_tile"], n_col_tiles=n_ct)(mat)
+        st = vm_init(mv, diag, b, x0, maxiter=500, with_trace=False,
+                     tol=tol)
+        stepper = make_vm_stepper(bucket=dims, chunk=16, **kw, **extra)
+        return stepper(*head, mat, st, tol,
+                       torch.full((G,), 500, dtype=torch.int32))
+
+    assert_vm_states_equal(step(block_rows=BK["block_rows"]), step())
+    with pytest.raises(ValueError, match="tile rows"):
+        step(block_rows=2 * BK["block_rows"])
