@@ -146,6 +146,19 @@
    the device-busy share (``torch.profiler``) of one AdamW step and one
    matvec.  No kernel is on this path (the reference's training path
    reaches no Pallas kernel): its launch counts stay 0.
+10b. The sharded train step: a (1, 1) ``("data", "model")`` mesh
+   (``repro_torch.launch.mesh.make_mesh``) over a world-size-1 NCCL group
+   (``file://`` rendezvous, as phase 6c), gemma3-1b at phase 10's width,
+   6 layers, B = 8, S = 128, batch and seed-0 weights: two
+   ``make_train_step(cfg, mesh)`` steps (DTensor parameters and AdamW
+   moments by ``distributed.sharding.param_specs``) against two unsharded
+   steps, the loss, every parameter and both moments bit for bit; the
+   sharded state checkpointed (payload sha256 equal to an unsharded
+   save's) and restored unsharded and through
+   ``train.fault.elastic_restore`` onto the (1, 1) mesh, bit for bit.
+   ms/step sharded against unsharded, kernels a step and the busy share
+   (``torch.profiler``), peak memory, beside the card's name and power
+   limit.  No kernel is on this path: its launch counts stay 0.
 11. The MoE, SSM and hybrid families at full width, after phase 10 frees
    its memory: granite-moe-1b-a400m (1,334,628,352 parameters),
    mamba2-780m (780,148,992) and zamba2-1.2b (1,104,937,856), random
@@ -2379,6 +2392,169 @@ def phase_train(dev):
     return row
 
 
+# ------------------------------------------------------------ phase 10b
+MESH_STEPS = 2
+
+
+def phase_mesh_train(dev, card):
+    """The sharded train step on the card: a (1, 1) ``("data", "model")``
+    mesh over a world-size-1 NCCL group (``file://`` rendezvous, as phase
+    6c), gemma3-1b at phase 10's width, depth, batch, data and seed-0
+    weights.  Two ``make_train_step(cfg, mesh)`` steps (DTensor parameters
+    and moments, the batch sharded over ``data``) held bit for bit against
+    two unsharded steps: the loss, every parameter and both AdamW moments.
+    Then the sharded state is checkpointed (``full_tensor`` on every rank,
+    rank 0 writes) and restored unsharded and through ``elastic_restore``
+    onto the (1, 1) mesh, bit for bit, its payload byte for byte an
+    unsharded save's.  ms/step sharded against unsharded, kernels a step,
+    the busy share and the peak memory are logged."""
+    import datetime
+    import json as _json
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.gn import param_dict
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
+                                   adamw_init, make_train_step)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import elastic_restore
+
+    cfg = gemma_config()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0),
+                       device=dev)
+    opt = AdamWConfig(lr=3e-3)                    # phase 10's settings
+    row = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=MESH_STEPS,
+               card=card)
+
+    def same(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+    def timed_steps(step_fn, params, state):
+        losses, ms = [], []
+        for s in range(MESH_STEPS):
+            (params, state, m), wall = _single(lambda: step_fn(
+                params, state, data.batch_at(s), s))
+            losses.append(m["loss"].detach().clone())
+            ms.append(wall * 1e3)
+        return params, state, losses, ms
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/pg", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            ref = init_params(cfg, torch.Generator(dev).manual_seed(0),
+                              device=dev)
+            ref_state = adamw_init(ref, opt)
+            plain = make_train_step(cfg, opt=opt, device=dev)
+            ref, ref_state, ref_losses, ref_ms = timed_steps(plain, ref,
+                                                             ref_state)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sh = distribute(init_params(
+                cfg, torch.Generator(dev).manual_seed(0), device=dev), mesh)
+            sh_state = adamw_init(sh, opt)
+            step = make_train_step(cfg, mesh, opt=opt)(data.batch_at(0))
+            sh, sh_state, sh_losses, sh_ms = timed_steps(step, sh, sh_state)
+            torch.cuda.synchronize()
+            row["peak_bytes"] = torch.cuda.max_memory_allocated()
+            pr, ps = param_dict(ref), param_dict(sh)
+            bad = [n for n in pr if not (
+                same(ps[n].full_tensor(), pr[n])
+                and same(sh_state.m[n].full_tensor(), ref_state.m[n])
+                and same(sh_state.v[n].full_tensor(), ref_state.v[n]))]
+            if bad or not all(same(a, b) for a, b in zip(sh_losses,
+                                                          ref_losses)):
+                raise AssertionError(
+                    f"sharded steps on (1, 1): losses "
+                    f"{[float(v) for v in sh_losses]} vs "
+                    f"{[float(v) for v in ref_losses]}; {len(bad)} of "
+                    f"{len(pr)} parameters (or moments) differ: {bad[:4]}")
+            row.update(losses=[float(v) for v in sh_losses],
+                       sharded_ms=sh_ms, unsharded_ms=ref_ms,
+                       sharded_ms_per_step=sh_ms[-1],
+                       unsharded_ms_per_step=ref_ms[-1])
+            log(f"  {MESH_STEPS} sharded steps on the (1, 1) mesh ≡ {MESH_STEPS}"
+                f" unsharded steps bit for bit: losses "
+                f"{[round(v, 6) for v in row['losses']]}, all {len(pr)} "
+                f"parameters and both moments; ms/step sharded "
+                f"{[round(v, 1) for v in sh_ms]} against unsharded "
+                f"{[round(v, 1) for v in ref_ms]} (the first step of each "
+                f"pays its set-up); peak {_gib(row['peak_bytes'])} with both "
+                f"models resident")
+
+            batch = data.batch_at(MESH_STEPS)
+            for name, fn, p, st in (("sharded", step, sh, sh_state),
+                                    ("unsharded", plain, ref, ref_state)):
+                _, wall, ev = device_profile(
+                    lambda: fn(p, st, batch, MESH_STEPS))
+                busy = sum(t for _, t, _ in ev)
+                steady = row[f"{name}_ms_per_step"]
+                row[name] = dict(busy_ms=busy, profiled_ms=wall * 1e3,
+                                 kernels=sum(c for _, _, c in ev),
+                                 busy_share=busy / steady)
+                log(f"  one profiled {name} step: {row[name]['kernels']} "
+                    f"kernels, device busy {busy:.1f} ms = "
+                    f"{busy / steady:.1%} of its {steady:.1f} ms step "
+                    f"({busy / (wall * 1e3):.1%} of {wall * 1e3:.1f} ms "
+                    "profiled)")
+                for key, t, c in sorted(ev, key=lambda e: -e[1])[:4]:
+                    log(f"      {t:9.2f} ms {c:6d}x  {key[:80]}")
+
+            # checkpoints: sharded save, unsharded and elastic restore
+            tree = {"params": param_dict(sh), "opt": sh_state}
+            whole = {"params": {n: t.full_tensor()
+                                for n, t in param_dict(sh).items()},
+                     "opt": type(sh_state)(
+                         step=sh_state.step,
+                         m={n: t.full_tensor() for n, t in sh_state.m.items()},
+                         v={n: t.full_tensor() for n, t in sh_state.v.items()})}
+            t0 = time.perf_counter()
+            ckpt.save(os.path.join(tmp, "sharded"), 1, tree)
+            save_s = time.perf_counter() - t0
+            ckpt.save(os.path.join(tmp, "plain"), 1, whole)
+            digests = [_json.load(open(os.path.join(
+                tmp, d, "step_000000001", "manifest.json")))["sha256"]
+                for d in ("sharded", "plain")]
+            got, _ = ckpt.restore(os.path.join(tmp, "sharded"), whole)
+            flat = lambda t: {**t["params"], **{f"m/{n}": v for n, v in  # noqa: E731
+                                                 t["opt"].m.items()},
+                              **{f"v/{n}": v for n, v in t["opt"].v.items()}}
+            ok_plain = all(same(got_t, want) for got_t, want in
+                           zip(flat(got).values(), flat(whole).values()))
+            ckpt.save(os.path.join(tmp, "params"), 1, param_dict(sh))
+            t0 = time.perf_counter()
+            el, _ = elastic_restore(os.path.join(tmp, "params"),
+                                    param_dict(sh), mesh)
+            elastic_s = time.perf_counter() - t0
+            ok_el = all(same(el[n].full_tensor(), whole["params"][n])
+                        and el[n].placements == ps[n].placements
+                        for n in whole["params"])
+            if not (ok_plain and ok_el and digests[0] == digests[1]):
+                raise AssertionError(
+                    f"checkpoint: unsharded restore {ok_plain}, elastic "
+                    f"{ok_el}, payload sha256 {digests}")
+            row.update(ckpt_save_s=save_s, elastic_restore_s=elastic_s)
+            log(f"  sharded checkpoint (saved in {save_s:.1f} s, payload "
+                f"sha256 = an unsharded save's) restored unsharded and "
+                f"through elastic_restore onto the (1, 1) mesh "
+                f"({elastic_s:.1f} s): bit for bit")
+            del ref, sh, ref_state, sh_state, tree, whole, got, el
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"  {card}")
+    return row
+
+
 # ------------------------------------------------------------- phase 11
 #: the MoE, SSM and hybrid families at full width: parameters (the
 #: reference's ``init_params``, by ``jax.eval_shape``)
@@ -3540,6 +3716,12 @@ def main() -> int:
     train = phase_train(dev)
     launches["train"] = ops.launches()
     log(f"  launches {launches['train']} (no kernel on the training path)")
+    log_phase(f"[phase 10b] the sharded train step on a (1, 1) mesh "
+              f"(NCCL, world size 1), {ARCH} at phase 10's shapes")
+    ops.reset_launches()
+    train["mesh"] = phase_mesh_train(dev, card)
+    launches["mesh"] = ops.launches()
+    log(f"  launches {launches['mesh']} (no kernel on the training path)")
     log_phase("[phase 11] the MoE, SSM and hybrid families at full width "
               f"({', '.join(FAMILIES)}; {LLAMA4} at {LLAMA4_LAYERS} layers)")
     ops.reset_launches()

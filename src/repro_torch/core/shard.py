@@ -39,7 +39,7 @@ size.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -47,7 +47,8 @@ from repro_torch.device import resolve_device
 
 __all__ = ["LANE_AXIS", "Shards", "lane_mesh", "mesh_shards",
            "mesh_signature", "pad_lanes", "place_lanes",
-           "place_replicated", "place_vm_state", "shard_any"]
+           "place_replicated", "place_vm_state", "shard_any",
+           "LaneSharding", "lane_sharding"]
 
 #: Name of the lane axis in a mesh signature.
 LANE_AXIS = "lanes"
@@ -126,6 +127,34 @@ def _lane_piece(a, start: int, stop: int, device, lane_axis: int):
         return a.lanes(start, stop, device)
     piece = a.narrow(lane_axis, start, stop - start).to(device)
     return piece.contiguous()
+
+
+class LaneSharding(NamedTuple):
+    """The lane axis of an ``ndim``-d tensor split over a lane mesh, the
+    other axes whole (the reference's ``NamedSharding`` of
+    :func:`lane_sharding`)."""
+    mesh: Mesh
+    ndim: int
+    lane_axis: int
+
+    def shard_indices(self, shape) -> Tuple[tuple, ...]:
+        """Each shard's index into a tensor of ``shape``: the slices
+        :func:`place_lanes` cuts, shard d's block on ``mesh[d]``."""
+        if len(shape) != self.ndim:
+            raise ValueError(f"a {self.ndim}-d sharding, a shape {shape}")
+        out = []
+        for start, stop in _lane_blocks(shape[self.lane_axis],
+                                        len(self.mesh)):
+            idx = [slice(None)] * self.ndim
+            idx[self.lane_axis] = slice(start, stop)
+            out.append(tuple(idx))
+        return tuple(out)
+
+
+def lane_sharding(mesh, ndim: int, lane_axis: int = 0) -> LaneSharding:
+    """``lane_axis`` of an ``ndim``-d tensor split over ``mesh`` (a tuple
+    of devices), the rest whole."""
+    return LaneSharding(tuple(mesh), int(ndim), int(lane_axis))
 
 
 def place_lanes(mesh, arrays, lane_axis: int = 0):

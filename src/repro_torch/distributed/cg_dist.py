@@ -56,7 +56,11 @@ from repro_torch.device import resolve_device, to_device
 from repro_torch.sparse.partition import PartitionedMatrix, partition_rows
 
 __all__ = ["DistCG", "make_dist_solver", "COLLECTIVES", "collectives",
-           "reset_collectives"]
+           "reset_collectives", "AXIS"]
+
+#: name of the one axis the rows are partitioned over (the process group's
+#: ranks, in rank order)
+AXIS = "rows"
 
 #: Collectives issued since :func:`reset_collectives`, by kind, and the
 #: bytes this rank sent in them.

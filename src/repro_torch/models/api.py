@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.distributed.hints import is_dtensor
 from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.models.config import ModelConfig
 
@@ -56,11 +57,29 @@ def forward_logits(params, cfg: ModelConfig, batch: Dict[str, Any],
 
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, Any]) -> torch.Tensor:
-    """Mean next-token cross entropy (fp32 logits)."""
+    """Mean next-token cross entropy (fp32 logits).  On DTensors (the
+    sharded train step) the tied unembedding leaves the logits sharded on
+    vocab: each rank takes the losses of the rows it holds with the vocab
+    whole (``local_map``; DTensor's rule for the gather's backward builds
+    zeros of the global logits' size on every rank), and the mean is a
+    DTensor."""
     logits = forward_logits(params, cfg, batch)
+    if not is_dtensor(logits):
+        return _token_losses(logits, batch["labels"]).mean()
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = [p if p.is_shard(0) else Replicate() for p in logits.placements]
+    return local_map(_token_losses, out_placements=pl,
+                     in_placements=(pl, pl), redistribute_inputs=True)(
+        logits, batch["labels"]).mean()
+
+
+def _token_losses(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """``logsumexp(logits) − logits[label]`` at each position."""
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
-    return (lse - picked).mean()
+    picked = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return lse - picked
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

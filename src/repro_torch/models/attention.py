@@ -22,8 +22,23 @@ Long sequences (S ≥ :data:`CHUNKED_ABOVE`) run query chunk by query chunk
 The computation is plain PyTorch, as the reference's is plain ``jnp``: the
 hand-written kernel :func:`repro_torch.kernels.flash_attention` is an entry
 point of its own, held against this module on the model's own q/k/v.  The
-reference's sharding hints (``distributed.hints``) are no-ops without a
-mesh and are left out.
+full-sequence path hints q, k and v heads-on-``model`` as the reference
+does (:mod:`repro_torch.distributed.hints`; no-ops without a mesh).
+
+On DTensors (the sharded train step, the dry run) DTensor's own rules
+cannot place every op here, and these routes take their place, each a
+no-op without a mesh:
+
+* ``hints.split_ready`` before each split of a feature dim into heads
+  (and of heads into kv groups): a dim sharded over more shards than
+  there are heads is gathered first;
+* ``hints.pin`` after the merge of heads into features, so the backward's
+  split meets the forward's layout;
+* ``local_map`` for the scores, mask, softmax and output: batch and
+  heads are independent, so each rank attends its own shard (the einsums
+  would flatten two sharded dims, which torch 2.11 refuses);
+* :func:`_write_slots` for the decode cache's in-place row write (no
+  DTensor rule for an in-place ``index_put_`` on a sharded cache).
 """
 from __future__ import annotations
 
@@ -33,6 +48,9 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.distributed.hints import (DATA, MODEL, hint, is_dtensor,
+                                           local_like, local_offset, pin,
+                                           split_ready)
 from repro_torch.models.layers import Dense, apply_rope, dense, rope_freqs
 
 __all__ = ["Attention", "attention", "AttnCache", "init_attn_cache",
@@ -61,7 +79,7 @@ class Attention(nn.Module):
 
 
 def _split_heads(x: torch.Tensor, n: int, d: int) -> torch.Tensor:
-    return x.reshape(*x.shape[:-1], n, d)
+    return split_ready(x, -1, n).reshape(*x.shape[:-1], n, d)
 
 
 def _repeat_kv(kv: torch.Tensor, hq: int) -> torch.Tensor:
@@ -78,7 +96,7 @@ def _gqa_scores_grouped(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     -> [B,Hq,S,T], query heads grouped per kv head (no kv repetition)."""
     b, s, hq, dd = q.shape
     hk = k.shape[2]
-    qg = q.reshape(b, s, hk, hq // hk, dd)
+    qg = split_ready(q, 2, hk).reshape(b, s, hk, hq // hk, dd)
     sc = torch.einsum("bshgd,bthd->bhgst", qg, k)
     return sc.reshape(b, hq, s, k.shape[1])
 
@@ -87,7 +105,7 @@ def _gqa_out_grouped(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """w [B,Hq,S,T] × seq-major v [B,T,Hk,D] -> [B,S,Hq,D]."""
     b, hq, s, t = w.shape
     hk = v.shape[2]
-    wg = w.reshape(b, hk, hq // hk, s, t)
+    wg = split_ready(w, 1, hk).reshape(b, hk, hq // hk, s, t)
     o = torch.einsum("bhgst,bthd->bshgd", wg, v)
     return o.reshape(b, s, hq, v.shape[-1])
 
@@ -146,20 +164,39 @@ def attention(p: Attention, x: torch.Tensor, *, n_heads: int,
         positions = torch.arange(s, device=x.device)[None, :]
         pos_k = torch.arange(k.shape[1], device=x.device)[None, :]
         causal, window = False, None
-    k = _repeat_kv(k, n_heads)                      # once, not per chunk
-    v = _repeat_kv(v, n_heads)
+    q = hint(q, DATA, None, MODEL, None)
+    # batch stays on DATA: a bare None would gather the global K
+    k = hint(_repeat_kv(k, n_heads), DATA, None, MODEL, None)  # once,
+    v = hint(_repeat_kv(v, n_heads), DATA, None, MODEL, None)  # not a chunk
 
     kw = dict(causal=causal, window=window, head_dim=head_dim,
               compute_dtype=x.dtype)
+    if is_dtensor(q):
+        # batch and heads are independent: each rank attends its shard
+        from torch.distributed.tensor.experimental import local_map
+        if positions.shape[0] > 1:
+            b0 = local_offset(q, 0)
+            positions = positions[b0:b0 + q.to_local().shape[0]]
+        pl = list(q.placements)
+        o = local_map(lambda *qkv: _attend(*qkv, positions, pos_k, kw),
+                      out_placements=pl, in_placements=(pl, pl, pl),
+                      redistribute_inputs=True)(q, k, v)
+    else:
+        o = _attend(q, k, v, positions, pos_k, kw)
+    return dense(p.wo, pin(o.reshape(b, s, n_heads * head_dim)))
+
+
+def _attend(q, k, v, positions, pos_k, kw):
+    """The scores, mask, softmax and output of every query, query chunk by
+    query chunk for a long sequence."""
+    s = q.shape[1]
     chunk = _pick_chunk(s, Q_CHUNK) if s >= CHUNKED_ABOVE else None
     if chunk is not None and positions.shape[0] == 1:
-        o = torch.cat([
+        return torch.cat([
             _masked_softmax_attn(q[:, c:c + chunk], k, v,
                                  positions[:, c:c + chunk], pos_k, **kw)
             for c in range(0, s, chunk)], dim=1)
-    else:
-        o = _masked_softmax_attn(q, k, v, positions, pos_k, **kw)
-    return dense(p.wo, o.reshape(b, s, n_heads * head_dim))
+    return _masked_softmax_attn(q, k, v, positions, pos_k, **kw)
 
 
 # ------------------------------------------------------------------ decode
@@ -189,7 +226,7 @@ def _scores_headmajor(q: torch.Tensor, kT: torch.Tensor) -> torch.Tensor:
     heads grouped per kv head (no kv repetition)."""
     b, s, hq, dd = q.shape
     hk = kT.shape[1]
-    qg = q.reshape(b, s, hk, hq // hk, dd)
+    qg = split_ready(q, 2, hk).reshape(b, s, hk, hq // hk, dd)
     sc = torch.einsum("bshgd,bhtd->bhgst", qg, kT)
     return sc.reshape(b, hq, s, kT.shape[2])
 
@@ -198,9 +235,38 @@ def _out_headmajor(w: torch.Tensor, vT: torch.Tensor) -> torch.Tensor:
     """w [B,Hq,1,T] × head-major vT [B,Hk,T,D] -> [B,1,Hq,D]."""
     b, hq, s, t = w.shape
     hk = vT.shape[1]
-    wg = w.reshape(b, hk, hq // hk, s, t)
+    wg = split_ready(w, 1, hk).reshape(b, hk, hq // hk, s, t)
     o = torch.einsum("bhgst,bhtd->bshgd", wg, vT)
     return o.reshape(b, s, hq, vT.shape[-1])
+
+
+def _write_slots(c: torch.Tensor, new: torch.Tensor, slot: torch.Tensor):
+    """``c[b, :, slot[b]] = new[b]`` for every row b, in place (``c`` a
+    head-major cache [B, Hk, L, D], ``new`` [B, Hk, D], ``slot`` [B]).
+
+    A DTensor cache (batch on ``data``, length on ``model``: DTensor has no
+    rule for an in-place ``index_put_`` on it) is written shard by shard:
+    ``new`` laid out as the cache's batch and heads, each rank writes the
+    rows whose slot falls in its block of the length and writes back what
+    it holds elsewhere."""
+    b, hk = c.shape[0], c.shape[1]
+    if not is_dtensor(c):
+        bidx = torch.arange(b, device=c.device)[:, None]        # [B,1]
+        hidx = torch.arange(hk, device=c.device)[None, :]       # [1,Hk]
+        c[bidx, hidx, slot[:, None]] = new.to(c.dtype)
+        return
+    loc = c.to_local()
+    new = local_like(new, c, {0: 0, 1: 1}).to(loc.dtype)
+    b0, l0 = local_offset(c, 0), local_offset(c, 2)
+    if is_dtensor(slot):
+        slot = slot.full_tensor()
+    s = slot.expand(b)[b0:b0 + loc.shape[0]] - l0
+    inside = (s >= 0) & (s < loc.shape[2])
+    s = s.clamp(0, loc.shape[2] - 1)
+    bidx = torch.arange(loc.shape[0], device=loc.device)[:, None]
+    hidx = torch.arange(loc.shape[1], device=loc.device)[None, :]
+    cur = loc[bidx, hidx, s[:, None]]
+    loc[bidx, hidx, s[:, None]] = torch.where(inside[:, None, None], new, cur)
 
 
 def attn_decode(p: Attention, x: torch.Tensor, cache: AttnCache,
@@ -227,10 +293,8 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: AttnCache,
     k = apply_rope(k, cos, sin)
 
     slot = pos % length if cache.ring else pos                  # [B]
-    bidx = torch.arange(b, device=x.device)[:, None]            # [B,1]
-    hidx = torch.arange(n_kv_heads, device=x.device)[None, :]   # [1,Hk]
-    cache.k[bidx, hidx, slot[:, None]] = k[:, 0].to(cache.k.dtype)
-    cache.v[bidx, hidx, slot[:, None]] = v[:, 0].to(cache.v.dtype)
+    _write_slots(cache.k, k[:, 0], slot)
+    _write_slots(cache.v, v[:, 0], slot)
 
     scores = _scores_headmajor(q, cache.k.to(x.dtype)).float() \
         * (head_dim ** -0.5)                        # [B, Hq, 1, L]

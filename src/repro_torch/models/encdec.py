@@ -13,8 +13,9 @@ flavor: LayerNorm, GELU MLP, q/k/v biases on every attention whatever
 The reference stacks each stack's layers and scans them; here they are
 two ``nn.ModuleList``s (``enc_layers``, ``dec_layers``) walked by Python
 loops, each layer body checkpointed when ``cfg.remat`` asks and a gradient
-is taken.  The reference's sharding hint on the decoder block is a no-op
-without a mesh and is left out.
+is taken.  The decoder block's input is hinted seq-sharded, as the
+reference's is (:mod:`repro_torch.distributed.hints`; a no-op without a
+mesh).
 
 Decode: :func:`init_cache` holds the decoder's self-attention cache (one
 stacked :class:`~repro_torch.models.attention.AttnCache`, head-major) and
@@ -32,10 +33,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.hints import DATA, MODEL, hint, remat_context
 from repro_torch.models.attention import (Attention, AttnCache,
                                           _gqa_out_grouped,
-                                          _gqa_scores_grouped, attention,
-                                          attn_decode)
+                                          _gqa_scores_grouped, _split_heads,
+                                          attention, attn_decode)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Embedding, MLPGelu, dense,
                                        draw_parameters, embed, ffn,
@@ -140,7 +142,8 @@ def _encode(params: EncDec, cfg: ModelConfig, audio_embeds, remat: bool):
     x = audio_embeds.to(dt)
     x = x + _sinusoids(x.shape[1], cfg.d_model, x.device).to(dt)[None]
     for lp in params.enc_layers:
-        x = checkpoint(_enc_block, lp, x, cfg, use_reentrant=False) \
+        x = checkpoint(_enc_block, lp, x, cfg, use_reentrant=False,
+                       context_fn=remat_context()) \
             if remat else _enc_block(lp, x, cfg)
     return norm(params.enc_ln, x, cfg.norm_eps)
 
@@ -153,14 +156,25 @@ def encode(params: EncDec, cfg: ModelConfig,
 
 
 def _dec_block(lp: DecLayer, h, enc, cfg: ModelConfig, positions):
-    h = h + attention(lp.attn, norm(lp.ln1, h, cfg.norm_eps),
-                      n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                      head_dim=cfg.hd, positions=positions, causal=True,
-                      rope_theta=cfg.rope_theta)
-    h = h + attention(lp.xattn, norm(lp.lnx, h, cfg.norm_eps),
-                      n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                      head_dim=cfg.hd, cross_kv=enc)
-    return h + ffn(lp.mlp, norm(lp.ln2, h, cfg.norm_eps))
+    h = hint(h, DATA, MODEL, None)                 # SP boundary
+    # each sublayer's input re-gathered to seq-replicated and its output
+    # back to the boundary's layout, as a transformer block's (torch 2.11
+    # refuses a matmul over batch and seq both sharded)
+    h = h + hint(attention(lp.attn, _gathered(lp.ln1, h, cfg),
+                           n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                           head_dim=cfg.hd, positions=positions,
+                           causal=True, rope_theta=cfg.rope_theta),
+                 DATA, MODEL, None)
+    h = h + hint(attention(lp.xattn, _gathered(lp.lnx, h, cfg),
+                           n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                           head_dim=cfg.hd, cross_kv=enc),
+                 DATA, MODEL, None)
+    return h + hint(ffn(lp.mlp, _gathered(lp.ln2, h, cfg)),
+                    DATA, MODEL, None)
+
+
+def _gathered(ln, h, cfg: ModelConfig):
+    return hint(norm(ln, h, cfg.norm_eps), DATA, None, None)
 
 
 def forward(params: EncDec, cfg: ModelConfig, tokens: torch.Tensor,
@@ -181,9 +195,13 @@ def _forward(params: EncDec, cfg: ModelConfig, tokens, audio_embeds,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for lp in params.dec_layers:
         x = checkpoint(_dec_block, lp, x, enc, cfg, positions,
-                       use_reentrant=False) \
+                       use_reentrant=False,
+                       context_fn=remat_context()) \
             if remat else _dec_block(lp, x, enc, cfg, positions)
-    x = norm(params.ln_f, x, cfg.norm_eps)
+    # the unembedding's input is re-gathered to seq-replicated, as a
+    # block's is (a matmul over batch and seq both sharded would
+    # flatten two sharded dims)
+    x = hint(norm(params.ln_f, x, cfg.norm_eps), DATA, None, None)
     if last_only:
         x = x[:, -1:]
     return unembed(params.embed, x)
@@ -231,7 +249,7 @@ def decode_step(params: EncDec, cfg: ModelConfig, cache: Dict[str, object],
         h = h + y
         # cross attention against the cached encoder K/V (no mask)
         u = norm(lp.lnx, h, cfg.norm_eps)
-        q = dense(lp.xattn.wq, u).reshape(b, 1, cfg.n_heads, cfg.hd)
+        q = _split_heads(dense(lp.xattn.wq, u), cfg.n_heads, cfg.hd)
         sc = _gqa_scores_grouped(q, cache["cross_k"][l].to(dt)).float() \
             * (cfg.hd ** -0.5)
         w = torch.softmax(sc, dim=-1).to(dt)

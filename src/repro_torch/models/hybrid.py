@@ -23,6 +23,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.hints import DATA, MODEL, hint, remat_context
 from repro_torch.models.attention import (Attention, AttnCache, attention,
                                           attn_decode)
 from repro_torch.models.config import ModelConfig
@@ -95,16 +96,26 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def _shared_block(sp: SharedBlock, x, cfg: ModelConfig, positions):
-    h = x + attention(sp.attn, norm(sp.ln1, x, cfg.norm_eps),
-                      n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                      head_dim=cfg.hd, positions=positions, causal=True,
-                      rope_theta=cfg.rope_theta)
-    return h + ffn(sp.mlp, norm(sp.ln2, h, cfg.norm_eps))
+    # the inputs re-gathered to seq-replicated and the outputs back to the
+    # SP layout, as a transformer block's are (the reference has no hint
+    # here; on a 2×16×16 mesh DTensor spends minutes searching a layout
+    # for the seq-sharded matmul, and torch 2.11 refuses its backward)
+    u = hint(norm(sp.ln1, x, cfg.norm_eps), DATA, None, None)
+    h = x + hint(attention(sp.attn, u, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                           positions=positions, causal=True,
+                           rope_theta=cfg.rope_theta), DATA, MODEL, None)
+    return h + hint(ffn(sp.mlp, hint(norm(sp.ln2, h, cfg.norm_eps),
+                                     DATA, None, None)), DATA, MODEL, None)
 
 
 def _ssm_layer(lp: SSMLayer, h, cfg: ModelConfig):
-    return h + mamba2_forward(lp.ssm, norm(lp.ln, h, cfg.norm_eps),
-                              cfg.d_model, cfg.ssm, norm_eps=cfg.norm_eps)
+    h = hint(h, DATA, MODEL, None)                 # SP boundary
+    # gather the block input (small) so in_proj stays sharded
+    u = hint(norm(lp.ln, h, cfg.norm_eps), DATA, None, None)
+    return h + hint(mamba2_forward(lp.ssm, u, cfg.d_model, cfg.ssm,
+                                   norm_eps=cfg.norm_eps),
+                    DATA, MODEL, None)
 
 
 def _layer_groups(cfg: ModelConfig):
@@ -143,11 +154,15 @@ def _forward(params: Hybrid, cfg: ModelConfig, tokens, extra_embeds,
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for start, length, attn_after in _layer_groups(cfg):
         for lp in params.layers[start:start + length]:
-            x = checkpoint(_ssm_layer, lp, x, cfg, use_reentrant=False) \
+            x = checkpoint(_ssm_layer, lp, x, cfg, use_reentrant=False,
+                           context_fn=remat_context()) \
                 if remat else _ssm_layer(lp, x, cfg)
         if attn_after and params.shared is not None:
             x = _shared_block(params.shared, x, cfg, positions)
-    x = norm(params.ln_f, x, cfg.norm_eps)
+    # the unembedding's input is re-gathered to seq-replicated, as a
+    # block's is (a matmul over batch and seq both sharded would
+    # flatten two sharded dims)
+    x = hint(norm(params.ln_f, x, cfg.norm_eps), DATA, None, None)
     if last_only:
         x = x[:, -1:]
     elif extra_embeds is not None:

@@ -17,6 +17,10 @@ turns gradients on for its step, and the GGN operator works on detached
 tensors through ``torch.func``.
 :meth:`reset_parameters` draws from an explicit ``torch.Generator`` the
 reference's truncated normal (±2σ) at the reference's scales.
+
+On a mesh the table is sharded on vocab, and :func:`embed` looks tokens
+up vocab-parallel (:func:`_embed_vocab_parallel`) in place of DTensor's
+rule for the index, whose backward fails on torch 2.11.
 """
 from __future__ import annotations
 
@@ -25,6 +29,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed.hints import (even, is_dtensor, local_offset,
+                                           per_channel)
 
 __all__ = ["Dense", "RMSNorm", "LayerNorm", "Embedding", "MLP", "MLPGelu",
            "dense", "rmsnorm", "layernorm", "norm", "make_norm", "embed",
@@ -81,9 +88,9 @@ class Dense(nn.Module):
 
 def dense(p: Dense, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     dt = compute_dtype or x.dtype
-    y = x.to(dt) @ p.w.to(dt)
+    y = even(x.to(dt) @ p.w.to(dt))
     if p.b is not None:
-        y = y + p.b.to(dt)
+        y = y + per_channel(p.b.to(dt), y)
     return y
 
 
@@ -151,7 +158,40 @@ class Embedding(nn.Module):
 
 def embed(p: Embedding, tokens: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
+    if is_dtensor(p.e):
+        return _embed_vocab_parallel(p.e, tokens, compute_dtype)
     return p.e[tokens].to(compute_dtype)
+
+
+def _embed_vocab_parallel(e, tokens, compute_dtype):
+    """The lookup on a table sharded on vocab: each rank looks up the
+    tokens of its block of the vocabulary (the others read 0), and the
+    result is the sum over those ranks (``Partial``), reduced at the next
+    layout change.  Per rank it is the unsharded lookup on its shard, the
+    same ops in the backward; DTensor's own rule for this index's backward
+    fails on torch 2.11.  A table the mesh does not shard on vocab (a
+    vocab the model axis does not divide) is whole on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = e.device_mesh
+    tok = tokens if isinstance(tokens, DTensor) else DTensor.from_local(
+        tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    vocab = [p.is_shard(0) for p in e.placements]
+    # tokens keep their own sharding off the vocab's mesh dims
+    tok = tok.redistribute(mesh, [Replicate() if v else p for v, p in
+                                  zip(vocab, tok.placements)])
+    # the table's gradient: its vocab shard; a sum over the mesh dims that
+    # split the tokens; whole where every rank reads all of them
+    loc = e.to_local(grad_placements=[
+        Shard(0) if v else Partial() if p.is_shard() else Replicate()
+        for v, p in zip(vocab, tok.placements)])
+    idx = tok.to_local() - local_offset(e, 0)
+    inside = (idx >= 0) & (idx < loc.shape[0])
+    out = torch.where(inside[..., None],
+                      loc[idx.clamp(0, loc.shape[0] - 1)], 0.0)
+    return DTensor.from_local(
+        out.to(compute_dtype), mesh,
+        [Partial() if v else p for v, p in zip(vocab, tok.placements)],
+        run_check=False)
 
 
 def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,10 @@ they are; its code, which this follows, does not — ROADMAP C).
 Dispatch and combine are one-hot products, as in the reference: exact in
 any dtype, since every expert slot holds at most one token and a token
 picks an expert at most once.  The expert products are batched matmuls.
-The reference's sharding hints (no-ops without a mesh) are left out.
+The reference's sharding hints pin the groups on ``data`` and the expert
+axis on ``model`` (:mod:`repro_torch.distributed.hints`; no-ops without a
+mesh).  On DTensors the dispatch, experts and combine are one
+``local_map`` region in that layout (:func:`_experts_sharded`).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.hints import DATA, MODEL, hint, is_dtensor
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.layers import Dense, _param, _truncated_normal_
 
@@ -87,6 +91,46 @@ def route(p: MoE, xg: torch.Tensor, cfg: MoEConfig):
     return tope, w_kept, pos, cap
 
 
+def _experts(disp, comb, xg, wi, wg, wo) -> torch.Tensor:
+    """Dispatch, the experts' SwiGLU at ``xg``'s dtype, and the combine in
+    fp32: [G, S, D]."""
+    xe = torch.einsum("gsec,gsd->egcd", disp, xg)            # [E, G, C, D]
+    xe = hint(xe, MODEL, DATA, None, None)
+    h = F.silu(torch.einsum("egcd,edf->egcf", xe, wg.to(xg.dtype))) \
+        * torch.einsum("egcd,edf->egcf", xe, wi.to(xg.dtype))
+    ye = torch.einsum("egcf,efd->egcd", h, wo.to(xg.dtype))
+    return torch.einsum("gsec,egcd->gsd", comb, ye.float())
+
+
+def _experts_sharded(disp, comb, xg, p: MoE) -> torch.Tensor:
+    """:func:`_experts` on each rank's groups and experts (``local_map``):
+    the layout the reference's hint gives ``xe`` (experts on ``model``,
+    groups on ``data``).  Groups are independent and experts add, so each
+    rank runs its experts, their weights gathered whole over the other
+    axes, on its groups; the result is a ``Partial`` sum over the expert
+    shards.  The inputs' gradients are ``Partial`` where ranks each add a
+    part: ``xg``'s over the expert shards, the weights' over the group
+    shards.  DTensor's einsum rules flatten two sharded dims, which torch
+    2.11 refuses even on a (1, 1) mesh."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    groups = [q.is_shard(0) for q in xg.placements]
+    experts = [q.is_shard(0) and not g
+               for q, g in zip(p.wi.placements, groups)]
+
+    def pl(on_groups, on_experts):
+        return [on_groups if g else on_experts if e else Replicate()
+                for g, e in zip(groups, experts)]
+    onehot, rows = pl(Shard(0), Shard(2)), pl(Shard(0), Replicate())
+    w, w_grad = pl(Replicate(), Shard(0)), pl(Partial(), Shard(0))
+    return local_map(
+        _experts, out_placements=pl(Shard(0), Partial()),
+        in_placements=(onehot, onehot, rows, w, w, w),
+        in_grad_placements=(onehot, onehot, pl(Shard(0), Partial()),
+                            w_grad, w_grad, w_grad),
+        redistribute_inputs=True)(disp, comb, xg, p.wi, p.wg, p.wo)
+
+
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     """x: [B, S, D] -> [B, S, D].  Router and combine in fp32, the expert
     products at ``x``'s dtype."""
@@ -97,7 +141,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     xt = x.reshape(n, d)
     if n_pad != n:
         xt = torch.cat([xt, xt.new_zeros(n_pad - n, d)], dim=0)
-    xg = xt.reshape(n_pad // g_sz, g_sz, d)
+    xg = hint(xt.reshape(n_pad // g_sz, g_sz, d), DATA, None, None)
 
     tope, w_kept, pos, cap = route(p, xg, cfg)
     sel = F.one_hot(tope, cfg.n_experts)                     # [G, S, K, E]
@@ -110,11 +154,8 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
     comb = torch.einsum("gske,gskc->gsec", sel * w_kept[..., None],
                         pos_oh.float())
 
-    xe = torch.einsum("gsec,gsd->egcd", disp, xg)            # [E, G, C, D]
-    h = F.silu(torch.einsum("egcd,edf->egcf", xe, p.wg.to(x.dtype))) \
-        * torch.einsum("egcd,edf->egcf", xe, p.wi.to(x.dtype))
-    ye = torch.einsum("egcf,efd->egcd", h, p.wo.to(x.dtype))
-
-    y = torch.einsum("gsec,egcd->gsd", comb, ye.float())     # [G, S, D]
-    y = y.to(x.dtype).reshape(n_pad, d)[:n]
-    return y.reshape(b, s, d)
+    y = _experts_sharded(disp, comb, xg, p) if is_dtensor(xg) \
+        else _experts(disp, comb, xg, p.wi, p.wg, p.wo)      # [G, S, D]
+    # cast before the group -> batch reshape, and pin the layout
+    y = hint(y.to(x.dtype), DATA, None, None).reshape(n_pad, d)[:n]
+    return hint(y.reshape(b, s, d), DATA, None, None)

@@ -21,6 +21,11 @@ the exponent's argument is masked first (``exp(where(mask, cum_i − cum_j,
 is the reference's value for value (every kept entry comes from the same
 operations, every other is zeroed by the same ``where``), and the gradient
 is the reference's wherever that is finite (ROADMAP C).
+
+On a mesh the heads are hinted onto ``model`` as the reference's are;
+the decode step copies its new state into a sharded cache after laying it
+out as the cache is (``hints.as_layout``: DTensor copies in place only
+between equal layouts).
 """
 from __future__ import annotations
 
@@ -31,6 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.hints import (DATA, MODEL, as_layout, hint,
+                                           is_dtensor, per_channel, pin,
+                                           split_ready)
 from repro_torch.models.config import SSMConfig
 from repro_torch.models.layers import (Dense, RMSNorm, _param,
                                        _truncated_normal_, dense, rmsnorm)
@@ -152,6 +160,39 @@ def _ssd_chunked(x, dt, a_head, B, C, chunk: int,
     return y, hprev
 
 
+def _ssd_sharded(xh, dt, a_head, B, C, chunk: int, h0=None):
+    """:func:`_ssd_chunked` on each rank's shard (``local_map``): batch and
+    heads are independent, so each rank scans its own rows and heads,
+    reading B and C whole over the head shards (their gradients a
+    ``Partial`` there) and its heads' ``a_head`` (a ``Partial`` over the
+    batch shards).  DTensor's own rules search a layout for every einsum
+    of the scan, which takes minutes on a 2×16×16 mesh, and flatten two
+    sharded dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(xh.placements)
+    batch = [p.is_shard(0) for p in pl]
+    head = [p.is_shard(2) for p in pl]
+    rows = [Shard(0) if b else Replicate() for b in batch]
+    heads = [Shard(0) if hd else Replicate() for hd in head]
+    dts = [Shard(0) if b else Shard(2) if hd else Replicate()
+           for b, hd in zip(batch, head)]
+    shared = [Partial() if hd else p for p, hd in zip(rows, head)]
+    state = [Shard(0) if b else Shard(1) if hd else Replicate()
+             for b, hd in zip(batch, head)]
+    args, in_pl = [xh, dt, a_head, B, C], [pl, dts, heads, rows, rows]
+    grad_pl = [pl, dts, [Shard(0) if hd else Partial() if b else Replicate()
+                         for b, hd in zip(batch, head)], shared, shared]
+    if h0 is not None:
+        args.append(h0)
+        in_pl.append(state)
+        grad_pl.append(state)
+    return local_map(
+        lambda *t: _ssd_chunked(*t[:5], chunk, t[5] if len(t) > 5 else None),
+        out_placements=(pl, state), in_placements=tuple(in_pl),
+        in_grad_placements=tuple(grad_pl), redistribute_inputs=True)(*args)
+
+
 def mamba2_forward(p: Mamba2, x: torch.Tensor, d_model: int, cfg: SSMConfig,
                    *, norm_eps: float = 1e-6,
                    conv_state: Optional[torch.Tensor] = None,
@@ -174,10 +215,17 @@ def mamba2_forward(p: Mamba2, x: torch.Tensor, d_model: int, cfg: SSMConfig,
 
     dt = softplus(dt.float() + p.dt_bias.float())
     a_head = -torch.exp(p.A_log.float())
-    xh = xc.reshape(*xc.shape[:-1], h, cfg.headdim)
-    y, h_last = _ssd_chunked(xh, dt, a_head, B, C, cfg.chunk, ssm_state)
+    xh = split_ready(xc, -1, h).reshape(*xc.shape[:-1], h, cfg.headdim)
+    # SSD heads shard on `model`: the chunk-quadratic decay tensor
+    # [b, nc, q, q, h] is the biggest live tensor and divides by heads
+    xh = hint(xh, DATA, None, MODEL, None)
+    dt = hint(dt, DATA, None, MODEL)
+    if is_dtensor(xh):
+        y, h_last = _ssd_sharded(xh, dt, a_head, B, C, cfg.chunk, ssm_state)
+    else:
+        y, h_last = _ssd_chunked(xh, dt, a_head, B, C, cfg.chunk, ssm_state)
     y = y + p.D.float()[:, None] * xh.float()
-    y = y.reshape(*x.shape[:-1], di).to(x.dtype)
+    y = pin(y.reshape(*x.shape[:-1], di)).to(x.dtype)
     y = rmsnorm(p.norm, y, norm_eps) * F.silu(z)
     out = dense(p.out_proj, y)
     if return_state:
@@ -223,24 +271,25 @@ def mamba2_decode(p: Mamba2, x: torch.Tensor, cache: SSMCache, d_model: int,
     # conv over (K-1 cached taps + this token)
     xp = torch.cat([cache.conv.to(x.dtype), xbc], dim=1)
     k = p.conv_w.shape[0]
-    conv_out = sum(xp[:, i: i + 1] * p.conv_w[i].to(x.dtype)
-                   for i in range(k)) + p.conv_b.to(x.dtype)
+    conv_out = sum(xp[:, i: i + 1] * per_channel(p.conv_w[i].to(x.dtype), xp)
+                   for i in range(k)) + per_channel(p.conv_b.to(x.dtype), xp)
     xbc1 = F.silu(conv_out)                               # [B, 1, C]
     xc = xbc1[..., :di]
     B = xbc1[..., di: di + n][:, 0]                       # [B, N]
     C = xbc1[..., di + n:][:, 0]
 
-    dt1 = softplus(dt.float() + p.dt_bias.float())[:, 0]  # [B, H]
+    dt1 = softplus(dt.float()
+                   + per_channel(p.dt_bias.float(), dt))[:, 0]  # [B, H]
     a_head = -torch.exp(p.A_log.float())
     dec = torch.exp(dt1 * a_head)                         # [B, H]
     xh = xc.reshape(x.shape[0], h, cfg.headdim).float()
     upd = torch.einsum("bh,bn,bhp->bhpn", dt1, B.float(), xh)
     ssm = dec[:, :, None, None] * cache.ssm.float() + upd
     y = torch.einsum("bn,bhpn->bhp", C.float(), ssm)
-    y = y + p.D.float()[:, None] * xh
+    y = y + per_channel(p.D.float(), xh, 1)[:, None] * xh
     y = y.reshape(x.shape[0], 1, di).to(x.dtype)
     y = rmsnorm(p.norm, y, norm_eps) * F.silu(z)
     out = dense(p.out_proj, y)
-    cache.conv.copy_(xp[:, -(k - 1):])
-    cache.ssm.copy_(ssm)
+    cache.conv.copy_(as_layout(xp[:, -(k - 1):], cache.conv))
+    cache.ssm.copy_(as_layout(ssm, cache.ssm))
     return out, cache

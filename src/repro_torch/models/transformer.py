@@ -24,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.hints import DATA, MODEL, hint, remat_context
 from repro_torch.models.attention import (Attention, AttnCache, attention,
                                           attn_decode)
 from repro_torch.models.config import ModelConfig
@@ -121,13 +122,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 def _block(lp: Block, x, cfg: ModelConfig, *, positions, window):
-    u = norm(lp.ln1, x, cfg.norm_eps)
-    h = x + attention(lp.attn, u, n_heads=cfg.n_heads,
-                      n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-                      positions=positions, window=window, causal=True,
-                      rope_theta=cfg.rope_theta)
-    z = norm(lp.ln2, h, cfg.norm_eps)
-    return h + _ffn(lp, z, cfg)
+    # sequence parallelism: the residual stream is seq-sharded on `model`
+    # at block boundaries; the attention/FFN input is re-gathered to
+    # seq-replicated, so the activation moves and not the weight
+    x = hint(x, DATA, MODEL, None)
+    u = hint(norm(lp.ln1, x, cfg.norm_eps), DATA, None, None)
+    h = x + hint(attention(lp.attn, u, n_heads=cfg.n_heads,
+                           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                           positions=positions, window=window, causal=True,
+                           rope_theta=cfg.rope_theta), DATA, MODEL, None)
+    z = hint(norm(lp.ln2, h, cfg.norm_eps), DATA, None, None)
+    return h + hint(_ffn(lp, z, cfg), DATA, MODEL, None)
 
 
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
@@ -158,9 +163,13 @@ def _forward(params: Transformer, cfg: ModelConfig, tokens, extra_embeds,
     for l, lp in enumerate(params.layers):
         kw = dict(positions=positions,
                   window=None if windows is None else windows[l])
-        x = checkpoint(_block, lp, x, cfg, use_reentrant=False, **kw) \
+        x = checkpoint(_block, lp, x, cfg, use_reentrant=False,
+                       context_fn=remat_context(), **kw) \
             if remat else _block(lp, x, cfg, **kw)
-    x = norm(params.ln_f, x, cfg.norm_eps)
+    # the unembedding's input is re-gathered to seq-replicated, as a
+    # block's is (a matmul over batch and seq both sharded would
+    # flatten two sharded dims)
+    x = hint(norm(params.ln_f, x, cfg.norm_eps), DATA, None, None)
     if last_only:
         x = x[:, -1:]
     elif n_prefix:

@@ -9,10 +9,10 @@ from repro_torch.roofline.model import (H100, Hardware, RooflineTerms,
                                         model_flops_train, roofline_terms,
                                         solver_terms)
 from repro_torch.roofline.report import format_table, load_results, one_liner
-from repro_torch.roofline.torch_cost import CostWalk, count_torch
+from repro_torch.roofline.torch_cost import CostWalk, count_torch, counting
 
 __all__ = ["CollectiveOp", "collective_bytes", "parse_collectives",
            "H100", "Hardware", "RooflineTerms", "roofline_terms",
            "model_flops_train", "model_flops_decode", "format_table",
            "load_results", "one_liner", "solver_terms", "CostWalk",
-           "count_torch"]
+           "count_torch", "counting"]

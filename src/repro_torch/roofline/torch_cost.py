@@ -25,6 +25,18 @@ steps is counted 13 times with no trip-count parsing:
   :mod:`repro_torch.roofline.collectives`' ring model with its group's
   size.
 
+**DTensors.**  On a mesh (the sharded train step, the dry run) the
+counter sees what one rank does: an op on DTensors is left to DTensor
+(the mode declines it), which redistributes the operands and runs the
+local op, and that local op and the collectives of the redistribution are
+what is counted.  The ops DTensor's sharding propagation runs on fake
+tensors to infer shapes are not counted.
+
+**Memory.**  ``peak_bytes`` is the most bytes held at once by the
+storages created during the call (each counted once, from its creation to
+its release; on ``meta`` tensors too): the call's temporaries, the
+reference's ``temp_size_in_bytes``.
+
 Blind spot: the port's hand-written CUDA kernels launch through
 ``ctypes`` (:mod:`repro_torch.kernels._launch`), under the dispatcher, so
 a dispatch mode never sees them, and their work is missing from the
@@ -34,7 +46,9 @@ analytically instead (:func:`repro_torch.roofline.model.solver_terms`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import weakref
 from typing import Dict, List, Tuple
 
 import torch
@@ -44,7 +58,7 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.roofline.collectives import wire_bytes
 
-__all__ = ["CostWalk", "count_torch"]
+__all__ = ["CostWalk", "count_torch", "counting"]
 
 
 @dataclasses.dataclass
@@ -55,6 +69,7 @@ class CostWalk:
     wire_bytes: float = 0.0
     collective_count: float = 0.0
     wire_by_kind: Dict[str, float] = dataclasses.field(default_factory=dict)
+    peak_bytes: float = 0.0
 
 
 #: (flops, transcendentals) per output element, by ATen op name (an
@@ -158,13 +173,45 @@ def _group_size(op: str, args) -> int:
 class _Counter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        self._dtensor, self._fake = DTensor, FakeTensor
         self.walk = CostWalk()
+        self._live = 0
+        self._refs: Dict[int, weakref.ref] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        flat = tree_flatten((args, kwargs))[0]
+        if any(isinstance(t, self._dtensor) for t in flat):
+            return NotImplemented     # DTensor runs it; its local ops count
         out = func(*args, **kwargs)
+        if any(isinstance(t, self._fake) for t in flat + _tensors(out)):
+            return out                # sharding propagation's shape pass
         self._count(func, args, kwargs, out)
+        self._track(flat, out)
         return out
+
+    def _track(self, flat, out):
+        """Add each storage ``out`` creates (not an input's: a view, an
+        in-place op) to the live bytes until it is released."""
+        ins = {t.untyped_storage()._cdata for t in flat
+               if isinstance(t, torch.Tensor)}
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in self._refs or key in ins:
+                continue
+            n = st.nbytes()
+            self._live += n
+            self.walk.peak_bytes = max(self.walk.peak_bytes, self._live)
+            self._refs[key] = weakref.ref(st, self._release(key, n))
+
+    def _release(self, key: int, n: int):
+        def cb(_):
+            self._live -= n
+            self._refs.pop(key, None)
+        return cb
 
     def _count(self, func, args, kwargs, out):
         w = self.walk
@@ -221,6 +268,15 @@ def count_torch(fn, *args, **kw) -> CostWalk:
     """Run ``fn(*args, **kw)`` once and return what it dispatched: flops,
     transcendentals, device bytes and collective wire bytes per device.
     The call does its real work; time it elsewhere."""
-    with _Counter() as mode:
+    with counting() as walk:
         fn(*args, **kw)
-    return mode.walk
+    return walk
+
+
+@contextlib.contextmanager
+def counting():
+    """:func:`count_torch` as a context: yields the :class:`CostWalk` the
+    block's ops are added to as they run (``copy.deepcopy`` it to read a
+    phase)."""
+    with _Counter() as mode:
+        yield mode.walk

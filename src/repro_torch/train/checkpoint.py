@@ -19,9 +19,15 @@ A tree is nested dicts (and named tuples) of tensors or arrays; a leaf's
 name is its path joined with ``/``, as the reference's are for dict trees,
 so either package reads the other's checkpoints.  bf16 leaves are stored as
 their ``uint16`` bits with dtype ``"bfloat16"`` (viewed through
-``torch.int16``: the port does not import ``ml_dtypes``).  Re-sharding on
-load (the reference's ``restore(shardings=)``) waits for the port's
-sharding module (ROADMAP A.9.7).
+``torch.int16``: the port does not import ``ml_dtypes``).
+
+**Mesh-independent.**  A DTensor leaf is saved whole: :func:`save`
+gathers it with ``full_tensor()`` on every rank (a collective, so every
+rank calls ``save``), rank 0 writes, and every rank waits at a barrier;
+the files are those of the unsharded tree, byte for byte.
+``restore(..., shardings=)`` lays each loaded leaf out on a mesh that may
+differ from the one that saved (elastic re-mesh,
+:func:`repro_torch.train.fault.elastic_restore`).
 """
 from __future__ import annotations
 
@@ -89,18 +95,44 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
 def save(root: str, step: int, tree: Any,
          metadata: Optional[Dict] = None) -> str:
-    """Stage and atomically publish one checkpoint.  Returns its path."""
+    """Stage and atomically publish one checkpoint.  Returns its path.
+    A tree with DTensor leaves is saved by every rank together: each
+    gathers the leaves, rank 0 writes, all meet at a barrier."""
+    name = f"step_{step:09d}"
+    final = os.path.join(root, name)
+    leaves = list(_named_leaves(tree))
+    sharded = any(_is_dtensor(v) for _, v in leaves)
+    if sharded:
+        import torch.distributed as dist
+        writer = dist.get_rank() == 0
+    arrays, dtypes = {}, {}
+    for k, leaf in leaves:
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()           # a collective: every rank
+        if not sharded or writer:
+            arrays[k], dtypes[k] = _to_host(leaf)
+    if sharded:
+        if writer:
+            _write(root, step, tree, arrays, dtypes, metadata)
+        dist.barrier()
+        return final
+    return _write(root, step, tree, arrays, dtypes, metadata)
+
+
+def _write(root: str, step: int, tree: Any, arrays: Dict, dtypes: Dict,
+           metadata: Optional[Dict]) -> str:
     os.makedirs(root, exist_ok=True)
     name = f"step_{step:09d}"
     tmp = os.path.join(root, name + ".tmp")
     final = os.path.join(root, name)
     os.makedirs(tmp, exist_ok=True)
-
-    arrays, dtypes = {}, {}
-    for k, leaf in _named_leaves(tree):
-        arrays[k], dtypes[k] = _to_host(leaf)
     payload = os.path.join(tmp, "arrays.npz")
     with open(payload, "wb") as f:
         np.savez(f, **arrays)
@@ -146,12 +178,20 @@ def _from_host(a: np.ndarray, dtype: str, like) -> torch.Tensor:
     return t.to(device)
 
 
-def restore(root: str, template: Any, step: Optional[int] = None):
+def restore(root: str, template: Any, step: Optional[int] = None,
+            shardings: Optional[Dict[str, Any]] = None):
     """Load a checkpoint into ``template``'s structure: each leaf a tensor
     at its saved dtype on the template leaf's device (the CPU for a
     non-tensor leaf).  A missing leaf raises ``KeyError``, a shape other
     than the template's ``ValueError``, a payload whose sha256 differs from
-    the manifest's ``IOError``.  Returns ``(tree, metadata)``."""
+    the manifest's ``IOError``.  Returns ``(tree, metadata)``.
+
+    ``shardings`` (``{leaf name: (mesh, placements)}``, e.g.
+    :func:`repro_torch.distributed.sharding.named_shardings`; the mesh may
+    differ from the one that saved) makes each named leaf a DTensor: every
+    rank reads the whole leaf and keeps its own shard.  A template leaf
+    that is a DTensor and has no entry keeps its own mesh and
+    placements."""
     step = latest_step(root) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {root}")
@@ -174,5 +214,14 @@ def restore(root: str, template: Any, step: Optional[int] = None):
             if tuple(a.shape) != tuple(want):
                 raise ValueError(f"leaf {k!r} shape {a.shape} != template "
                                  f"{tuple(want)}")
-            leaves[k] = _from_host(a, manifest["leaves"][k]["dtype"], ref)
+            t = _from_host(a, manifest["leaves"][k]["dtype"], ref)
+            sh = (shardings or {}).get(k)
+            if sh is None and _is_dtensor(ref):
+                sh = (ref.device_mesh, ref.placements)
+            if sh is not None:
+                from torch.distributed.tensor import distribute_tensor
+                mesh, pl = sh
+                t = distribute_tensor(t.to(mesh.device_type), mesh, pl,
+                                      src_data_rank=None)
+            leaves[k] = t
     return _rebuild(template, leaves), manifest["metadata"]

@@ -7,18 +7,23 @@
   checkpoint.
 * :func:`with_retries` — runs a step with bounded retries for transient
   faults.
-
-The reference's ``elastic_restore`` (restore onto a different mesh) needs
-the parameter sharding of ``distributed/sharding.py``, which the port does
-not have yet (ROADMAP A.9.7).
+* :func:`elastic_restore` — restores a checkpoint onto a DIFFERENT mesh:
+  checkpoints hold whole tensors (:mod:`repro_torch.train.checkpoint`),
+  so only the layout changes.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
-__all__ = ["StragglerError", "StepWatchdog", "with_retries"]
+from torch import nn
+
+from repro_torch.distributed.sharding import named_shardings, param_specs
+from repro_torch.train import checkpoint as ckpt
+
+__all__ = ["StragglerError", "StepWatchdog", "with_retries",
+           "elastic_restore"]
 
 
 class StragglerError(RuntimeError):
@@ -65,3 +70,16 @@ def with_retries(fn: Callable, *args, retries: int = 2,
             if on_retry is not None:
                 on_retry(attempt, e)
     raise last
+
+
+def elastic_restore(root: str, template: Any, new_mesh, *,
+                    step: Optional[int] = None):
+    """Restore parameters onto ``new_mesh``: ``template`` is a module or a
+    ``{name: tensor}`` mapping, each leaf laid out by
+    :func:`~repro_torch.distributed.sharding.param_specs` on the new mesh
+    (the mesh that saved does not matter: leaves are stored whole).
+    Returns ``({name: DTensor}, metadata)``."""
+    if isinstance(template, nn.Module):
+        template = {n: p.detach() for n, p in template.named_parameters()}
+    shardings = named_shardings(param_specs(template, new_mesh), new_mesh)
+    return ckpt.restore(root, template, step=step, shardings=shardings)

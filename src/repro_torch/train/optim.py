@@ -60,10 +60,12 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
     """Zero moments at ``cfg.state_dtype`` for a module or a
-    ``{name: tensor}`` mapping (:func:`~repro_torch.core.gn.param_dict`)."""
+    ``{name: tensor}`` mapping (:func:`~repro_torch.core.gn.param_dict`),
+    each laid out as its parameter (a DTensor parameter's moments are
+    DTensors with its placements)."""
     dt = dtype_of(cfg.state_dtype)
     leaves = param_dict(params)
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
+    zeros = lambda: {n: torch.zeros_like(p, dtype=dt)  # noqa: E731
                      for n, p in leaves.items()}
     return AdamWState(step=torch.zeros((), dtype=torch.int32), m=zeros(),
                       v=zeros())

@@ -41,7 +41,9 @@ NEEDED = ("repro_torch.sparse.mtx", "repro_torch.core.shard",
           "repro_torch.models.hybrid", "repro_torch.models.encdec",
           "repro_torch.serve.quant_cache", "repro_torch.roofline",
           "repro_torch.roofline.model", "repro_torch.roofline.torch_cost",
-          "repro_torch.roofline.collectives", "repro_torch.roofline.report")
+          "repro_torch.roofline.collectives", "repro_torch.roofline.report",
+          "repro_torch.distributed.sharding", "repro_torch.distributed.hints",
+          "repro_torch.launch.mesh", "repro_torch.launch.dryrun")
 
 
 def test_port_imports_neither_jax_nor_reference():

@@ -220,8 +220,20 @@ def test_microbatch_step_equals_full_batch():
 
 
 def test_mesh_waits_for_sharding():
-    with pytest.raises(NotImplementedError, match="A.9.7"):
-        make_train_step(CFG, mesh=object(), device="cpu")
+    """``make_train_step(mesh=)`` no longer waits: it returns the
+    reference's ``jit_for(batch_shape)`` (the sharded step itself is held
+    in tests/test_torch_mesh_train.py), which refuses a microbatch count
+    that does not divide the per-shard batch."""
+    class Mesh:                   # what jit_for reads of a DeviceMesh
+        mesh_dim_names, shape = ("data", "model"), (2, 1)
+
+        def size(self, i):
+            return self.shape[i]
+
+    shapes = {"tokens": (4, 16), "labels": (4, 16)}      # 2 a data shard
+    with pytest.raises(ValueError, match="per-shard"):
+        make_train_step(CFG, mesh=Mesh(), microbatches=4)(shapes)
+    assert callable(make_train_step(CFG, mesh=Mesh(), microbatches=2)(shapes))
 
 
 # ------------------------------------------------------------------- data
