@@ -9,7 +9,9 @@
    (``spmv_sell_kernel<…, false>``, all 14: 7 type triples, the TPU
    tier's bf16 ones included, × int16/int32) must have a 0-byte stack
    frame (SELL: and no spills), each bf16 ``flash_attention``
-   instantiation no spills and ``HMMA`` in its SASS.
+   instantiation no spills and ``HMMA`` in its SASS; each ``dot3_bulk``
+   instantiation bulk copies (``UBLKCP``) and mbarrier operations
+   (``SYNCS``) in its SASS.
 1. Kernels against their plain PyTorch versions on the card: the SELL
    kernel with each bag's per-lane table (the main bag, an int16 bag,
    lanes whose widths differ ~30×, and 2,049-slot hub rows for its
@@ -55,7 +57,13 @@
    bitwise: ``spmv_ell`` (the ELLPACK kernel at G = 1) on
    ``poisson_2d(1000)`` and on the banded widths of phase 1 for every
    faithful and tier scheme; ``dot`` (one launch) at n ∈ {1, 2047, 2048, 2049,
-   10^6} and three calls in a row of different n; ``dot``, ``dot3``,
+   10^6} and three calls in a row of different n; ``dot3`` (one
+   launch, a block per chunk reading through bulk copies) at the same n, 10^7
+   (fp64) and 2^24 + 2,049 (fp32), three calls in a row, one call on each
+   of two streams at once, r, u and w one to three elements into their
+   storage, and one kernel a call in the profiler, each bit for bit; it is
+   timed at n = 10^6 (fp64, fp32) and 10^7 (fp64) beside its bound and
+   three ``torch.dot`` calls; ``dot``, ``dot3``,
    ``phase2`` and ``phase3`` at fp32 and fp64 on vectors of n = 10^6 and
    of ragged lengths.  Each is timed at n = 10^6 (fp64; the SpMV at
    mixed_v3, and each tier scheme) with a cold, clean L2 before every
@@ -346,6 +354,9 @@ def ptxas_report(source: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             rows[cur]["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and cur:
+            rows[cur]["smem"] = int(m[1])
     names = _demangle(list(rows))
     return {names[k]: v for k, v in rows.items()}
 
@@ -375,7 +386,8 @@ def phase_build(libs: dict) -> None:
     """Log every kernel's ptxas report; each ELLPACK register-tree
     instantiation must keep a 0-byte stack frame, each SELL register-tree
     instantiation a 0-byte stack frame and no spills, each bf16 flash
-    instantiation must not spill and must run HMMA."""
+    instantiation must not spill and must run HMMA, and each dot3
+    instantiation must run bulk copies and mbarrier operations."""
     faults = []
     sell = 0
     for source in ("spmv_sell", "spmv_ellpack", "dot", "fused_phase",
@@ -384,7 +396,8 @@ def phase_build(libs: dict) -> None:
             sell += kern.startswith("spmv_sell_kernel<")
             log(f"  {source}: {kern}: {r.get('registers')} registers, "
                 f"{r.get('stack')} B stack, {r.get('spill_stores')} / "
-                f"{r.get('spill_loads')} B spill stores / loads")
+                f"{r.get('spill_loads')} B spill stores / loads, "
+                f"{r.get('smem', 0)} B static shared")
             if kern.startswith("spmv_ellpack_reg<") and r.get("stack") != 0:
                 faults.append(f"{kern}: {r.get('stack')} B stack frame")
             # the SELL kernel's register-tree instantiations (kWide false)
@@ -408,8 +421,25 @@ def phase_build(libs: dict) -> None:
         log(f"  flash_attn SASS: HMMA per bf16 instantiation {bf16}")
         if not bf16 or not all(bf16.values()):
             faults.append(f"flash_fwd_bf16 without HMMA: {bf16}")
+    faults += dot3_build(libs)
     if faults:
         raise AssertionError("build: " + "; ".join(faults))
+
+
+def dot3_build(libs: dict) -> list:
+    """dot3's bulk copies (``UBLKCP``) and mbarrier operations (``SYNCS``)
+    in the SASS of each instantiation.  Returns the faults."""
+    counts = {op: sass_counts(libs["dot"], op) for op in ("UBLKCP", "SYNCS")}
+    if counts["UBLKCP"] is None:
+        log("  dot: no cuobjdump in the toolkit; UBLKCP not checked")
+        return []
+    bulk = {k: {op: c[k] for op, c in counts.items()}
+            for k in counts["UBLKCP"] if k.startswith("dot3_bulk<")}
+    log(f"  dot SASS: bulk copies and mbarrier operations per dot3 "
+        f"instantiation {bulk}")
+    if len(bulk) != 2 or not all(all(c.values()) for c in bulk.values()):
+        return [f"dot3_bulk without UBLKCP or SYNCS: {bulk}"]
+    return []
 
 
 # ------------------------------------------------------------------ data
@@ -1191,6 +1221,110 @@ def _held(label, got, want, errs, name):
                                  f"version (max |Δ| {err})")
 
 
+#: dot3 beyond phase 5's common sizes: ten million leaves (4,883 chunks,
+#: 32 chunk sums a thread in the finish) and, at fp32, more than 2^24
+#: (8,193 chunks, 64 a thread)
+DOT3_LONG = (("float64", 10**7), ("float32", 2**24 + 2049))
+
+
+def dot3_checks(dev, gen, errs) -> dict:
+    """The bulk-copy kernel ``dot3`` against ``dot3_plain``, bit for
+    bit: every n of ``DOT_N`` and the long ones, three calls in a row of
+    different n, a call on a second stream while the first stream's is in
+    flight (a ticket each), r, u and w one to three elements into their
+    storage (the plain-load path), and one kernel a call in the profiler.
+    Times it cold at n = 10^6 (fp64, fp32) and 10^7 (fp64) beside its
+    bound, and logs the sum of three ``torch.dot`` calls at the same sizes
+    for the reader (no one PyTorch call computes [r·u, w·u, r·r]), beside
+    the timer's floor and dot3 at one chunk."""
+    import torch
+    from repro_torch.kernels import dot as D
+
+    def hold(label, got, want):
+        _held(f"dot3/{label}", got, want, errs, "dot3")
+        if not _bits(got, want):
+            raise AssertionError(f"dot3/{label}: not bit for bit: "
+                                 f"{got.tolist()} vs {want.tolist()}")
+
+    def vecs(nn, dt, offsets=(0, 0, 0)):
+        return [torch.randn(nn + o, generator=gen, dtype=dt).to(dev)[o:]
+                for o in offsets]
+
+    for dt in (torch.float64, torch.float32):
+        name = str(dt)[6:]
+        sizes = DOT_N + tuple(nn for d, nn in DOT3_LONG if d == name)
+        for nn in sizes:
+            hold(f"{name}/n={nn}", D.dot3(*(v := vecs(nn, dt))),
+                 D.dot3_plain(*v))
+        # three calls in a row, no synchronisation: the ticket resets
+        trio = [vecs(nn, dt) for nn in (10**7 + 1, 2049, 3 * 10**5 + 7)]
+        got = [D.dot3(*v) for v in trio]
+        for v, g in zip(trio, got):
+            hold(f"{name}/in a row", g, D.dot3_plain(*v))
+        # one call in flight on each of two streams
+        big, small = vecs(10**7, dt), vecs(10**6 + 3, dt)
+        side = torch.cuda.Stream(device=dev)
+        torch.cuda.synchronize()
+        g_big = D.dot3(*big)
+        with torch.cuda.stream(side):
+            g_small = D.dot3(*small)
+        torch.cuda.synchronize()
+        hold(f"{name}/two streams", g_big, D.dot3_plain(*big))
+        hold(f"{name}/two streams", g_small, D.dot3_plain(*small))
+        # storage offsets: no slice of r or w is 16-byte aligned
+        offsets = (1, 0, 1) if dt == torch.float64 else (1, 2, 3)
+        for nn in (10**6, 10**6 + 3):
+            hold(f"{name}/offsets {offsets}/n={nn}",
+                 D.dot3(*(v := vecs(nn, dt, offsets))), D.dot3_plain(*v))
+        log(f"  dot3 {name}: n={sizes}, three in a row, two streams, "
+            f"storage offsets {offsets}: bitwise equal")
+    # one kernel a call: 3 calls between two runs of 2,000 elementwise
+    # kernels.  Late in the smoke the profiler loses the first and last few
+    # kernels of a window (the first 3 of a window of 3 calls and 2,000 pads
+    # after them); a long window never shows it.  All but the padding must
+    # be dot3_bulk.
+    v = vecs(10**6, torch.float64)
+    pad = torch.zeros(1, device=dev)
+
+    def window():
+        for _ in range(2000):
+            pad.add_(1.0)
+        out = [D.dot3(*v) for _ in range(3)]
+        for _ in range(2000):
+            pad.add_(1.0)
+        return out
+
+    _, _, ev = device_profile(window)
+    bulk = sum(c for k, _, c in ev if "dot3_bulk" in k)
+    other = {k[:60]: c for k, _, c in ev if "dot3_bulk" not in k}
+    if bulk != 3 or any("elementwise" not in k for k in other):
+        raise AssertionError(f"dot3: 3 calls ran the kernels {ev}")
+    log(f"  dot3 profile of 3 calls: {bulk} dot3_bulk kernels (and "
+        f"{sum(other.values())} of the 4,000 padding)")
+    # what the timer reads for a launch that moves no data, and dot3's own
+    # fixed cost (one block, one chunk: copy latency, tree, ticket, finish)
+    one = vecs(2048, torch.float64)
+    sizes = {"timer_floor_ms": cold_ms(lambda: pad.add_(1.0)),
+             "one_chunk_ms": cold_ms(lambda: D.dot3(*one))}
+    log(f"    cold_ms of one 1-element kernel {sizes['timer_floor_ms']:.4f} "
+        f"ms; dot3 at n = 2048 (one chunk) {sizes['one_chunk_ms']:.4f} ms")
+    for dt, nn in ((torch.float64, 10**6), (torch.float32, 10**6),
+                   (torch.float64, 10**7)):
+        r, u, w = vecs(nn, dt)
+        el = r.element_size()
+        b_ms, b_by = bound_ms(3 * nn * el, 6 * nn, dt)
+        ms = cold_ms(lambda: D.dot3(r, u, w))
+        three = cold_ms(lambda: (torch.dot(r, u), torch.dot(w, u),
+                                 torch.dot(r, r)))
+        key = f"{str(dt)[6:]}/n={nn}"
+        sizes[key] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                          share=b_ms / ms, three_torch_dot_ms=three)
+        log(f"    dot3 {key}: {ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+            f"({b_ms / ms:.1%}); three torch.dot {three:.4f} ms "
+            f"({b_ms / three:.1%}; for the reader)")
+    return sizes
+
+
 def phase_single_kernels(a, dev):
     """spmv_ell, dot, dot3, phase2, phase3 against their plain versions on
     the card, bitwise; each timed at n = 10^6 with its bound."""
@@ -1277,6 +1411,7 @@ def phase_single_kernels(a, dev):
                   errs, "dot")
         log(f"  dot {str(dt)[6:]} n={DOT_N} and three calls in a row: "
             "bitwise equal")
+    dot3_sizes = dot3_checks(dev, gen, errs)
     for dt in (torch.float64, torch.float32):
         for nn in (n,) + RAGGED_N:
             r, ap, p, x, w = (torch.randn(nn, generator=gen, dtype=dt
@@ -1316,6 +1451,7 @@ def phase_single_kernels(a, dev):
                     ms=cold_ms(kern), plain_ms=cold_ms(plain),
                     library_ms=None if lib is None else cold_ms(lib),
                     bound_ms=b_ms, bound_by=b_by, bytes=vecs * nn * el)
+    timed["dot3"]["sizes"] = dot3_sizes
     for name, t in timed.items():
         t["max_abs_err"] = errs[name]
         lib = ("–" if t["library_ms"] is None
@@ -3785,7 +3921,8 @@ def main() -> int:
                                  "bound_by", "library_ms")},
             **{k: t[k] for k in ("bound_stored_ms", "bound_streamed_ms",
                                  "streamed_slots", "class_ms", "ms_fp64",
-                                 "bound_ms_fp64", "library_dtype", "shape")
+                                 "bound_ms_fp64", "library_dtype", "shape",
+                                 "sizes")
                if k in t}})
     lm["flash_attention"] = flash_timed
     print(json.dumps({"sharded": sharded, "distributed": distributed}),

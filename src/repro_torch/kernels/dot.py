@@ -11,13 +11,17 @@ Both are ``csrc/dot.cu``.  The TPU kernels accumulate an ``[8, 512]``
 tile of lane partials across a sequential grid; Hopper has no such grid,
 so the sum is :func:`chunk_tree`: the products, padded with +0, are cut
 into chunks of :data:`CHUNK`, each chunk is reduced by the halving
-``tree_sum`` of :mod:`repro_torch.core.batch` (one CUDA block each), and
-the chunk sums by the same tree.  :func:`dot` is one launch: the block
+``tree_sum`` of :mod:`repro_torch.core.batch` (by one CUDA block), and
+the chunk sums by the same tree.  Both kernels are one launch: the block
 that finishes last (an integer ticket on a counter the wrapper keeps per
-device and stream) reduces the chunk sums; :func:`dot3` reduces them in a
-second launch.  No floating-point atomics, so a kernel's result is the
-same on every run and equal bit for bit to its plain version.  Bound by
-bytes: each input is read once.
+device and stream) reduces the chunk sums.  Both run a block per chunk;
+:func:`dot3`'s block reads its chunk of r, u and w into shared memory
+with bulk asynchronous copies (TMA) that complete on an mbarrier, and a
+slice a bulk copy cannot take (an address not 16-byte aligned, a ragged
+last chunk whose bytes are not a multiple of 16) with plain loads, on the
+card.  No floating-point atomics, so a kernel's result is the same on
+every run and equal bit for bit to its plain version.  Bound by bytes:
+each input is read once.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  :data:`LAUNCHES` counts the
@@ -44,7 +48,8 @@ LAUNCHES: Dict[str, int] = {"dot": 0, "dot3": 0}
 
 _DTYPE_CODE = {torch.float64: 0, torch.float32: 1}
 
-#: (device index, stream) -> dot's ticket counter, 0 between calls.
+#: (device index, stream) -> the ticket counter of dot and dot3, 0 between
+#: calls (calls on one stream run one after the other).
 _TICKETS: Dict[tuple, torch.Tensor] = {}
 
 
@@ -55,6 +60,18 @@ def reset_launches() -> None:
 
 def n_chunks(n: int) -> int:
     return max(1, -(-n // CHUNK))
+
+
+def _ticket(device: torch.device) -> tuple:
+    """``(stream, ticket)``: the current stream of ``device`` and its ticket
+    counter."""
+    stream = torch.cuda.current_stream().cuda_stream
+    key = (device.index, stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                             device=device)
+    return stream, ticket
 
 
 def chunk_tree(p: torch.Tensor) -> torch.Tensor:
@@ -100,12 +117,7 @@ def dot(a: torch.Tensor, b: torch.Tensor, *, acc_dtype=None) -> torch.Tensor:
     out = torch.empty((), dtype=acc, device=a.device)
     fn = function("dot", "repro_dot", [I, P, P, LL, P, P, P, P])
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        key = (a.device.index, stream)
-        ticket = _TICKETS.get(key)
-        if ticket is None:
-            ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
-                                                 device=a.device)
+        stream, ticket = _ticket(a.device)
         err = fn(code, a.data_ptr(), b.data_ptr(), n, part.data_ptr(),
                  out.data_ptr(), ticket.data_ptr(), stream)
     raise_on_error("dot", "dot", err)
@@ -125,20 +137,22 @@ def dot3(r: torch.Tensor, u: torch.Tensor, w: torch.Tensor, *,
          acc_dtype=None) -> torch.Tensor:
     """Fused ``[r·u, w·u, r·r]`` in one sweep over r, u, w, shape (3,)
     (the port of ``dot3_pallas``)."""
-    if on_cpu("dot3", r):
-        return dot3_plain(r, u, w, acc_dtype=acc_dtype)
     acc = r.dtype if acc_dtype is None else acc_dtype
+    if acc not in _DTYPE_CODE:
+        raise ValueError(f"dot3: dtype {acc} is not float32/float64")
+    if on_cpu("dot3", r):
+        return dot3_plain(r, u, w, acc_dtype=acc)
     r, u, w = vectors("dot3", acc, r, u, w)
-    code = dtype_code("dot3", r)
     check_cuda("dot3", r.device, r=r, u=u, w=w)
     n = r.shape[0]
     part = torch.empty(3 * n_chunks(n), dtype=acc, device=r.device)
     out = torch.empty(3, dtype=acc, device=r.device)
-    fn = function("dot", "repro_dot3", [I, P, P, P, LL, P, P, P])
+    fn = function("dot", "repro_dot3", [I, P, P, P, LL, P, P, P, P])
     with torch.cuda.device(r.device):
-        err = fn(code, r.data_ptr(), u.data_ptr(), w.data_ptr(), n,
-                 part.data_ptr(), out.data_ptr(),
-                 torch.cuda.current_stream().cuda_stream)
+        stream, ticket = _ticket(r.device)
+        err = fn(_DTYPE_CODE[acc], r.data_ptr(), u.data_ptr(), w.data_ptr(),
+                 n, part.data_ptr(), out.data_ptr(), ticket.data_ptr(),
+                 stream)
     raise_on_error("dot", "dot3", err)
     LAUNCHES["dot3"] += 1
     return out

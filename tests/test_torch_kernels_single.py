@@ -12,7 +12,10 @@ on the CPU) against the JAX package's Pallas kernels in interpret mode.
   is held to rtol times the sum of its terms' magnitudes;
 * the port's chunked tree is a composition of ``batch.tree_sum``, bit for
   bit, and a step-by-step numpy model of ``csrc/reduce.cuh`` (the order in
-  which the CUDA kernels add) lands on the same bits.
+  which the CUDA kernels add) lands on the same bits;
+* ``dot3``'s order in ``csrc/dot.cu`` (the block tree of each chunk, three
+  sums at once, and the last block's finish through ``tree_sum8``, eight
+  loads in flight) lands on ``dot3_plain``'s bits.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``chip_smoke.py``.
@@ -279,6 +282,106 @@ def test_chunk_tree_is_tree_sum_and_cuda_order(n):
     got3 = D.chunk_tree(torch.from_numpy(q)).numpy()
     assert np.array_equal(got3, _ref_chunk_tree(q))
     assert np.array_equal(got3, [_cuda_model(row) for row in q])
+
+
+def _stack_tree8(leaf, w):
+    """``tree_sum8`` in ``csrc/dot.cu`` (w a power of two, at least 8): each
+    aligned run of eight bit-reversed visits is added as one subtree, whose
+    sum enters ``_stack_tree``'s stack as a leaf."""
+    logw = w.bit_length() - 1
+    stk = []
+    for g in range(w // 8):
+        l = [leaf(int(format(8 * g + e, f"0{logw}b")[::-1], 2))
+             for e in range(8)]
+        v = ((l[0] + l[1]) + (l[2] + l[3])) + ((l[4] + l[5]) + (l[6] + l[7]))
+        m = g + 1
+        while m & 1 == 0:
+            v = stk.pop() + v
+            m >>= 1
+        stk.append(v)
+    return stk[0]
+
+
+def _dot3_model(vecs):
+    """``dot3_bulk`` step by step: ``_cuda_model``'s blocks on the three
+    products (``block_tree3`` keeps ``block_tree``'s bracketing for each),
+    then ``finish3``: thread t's leaves t + 256 k through ``tree_sum8`` from
+    eight a thread up, ``tree_sum`` below, then the block tree."""
+    r, u, w = vecs
+    p = np.stack([r * u, w * u, r * r])
+    T, I = 256, D.CHUNK // 256
+    n = p.shape[-1]
+    nb = D.n_chunks(n)
+    pad = np.zeros((3, nb * D.CHUNK), p.dtype)
+    pad[:, :n] = p
+    v = pad.reshape(3, nb, I, T)               # [q, block, slot k, thread t]
+    s = I // 2
+    while s > 0:                               # fold_items
+        v[:, :, :s] = v[:, :, :s] + v[:, :, s:2 * s]
+        s //= 2
+    part = _block_tree(v[:, :, 0], T)          # [3, nb]
+    wp = 1 << max(nb - 1, 0).bit_length()
+    lanes = np.zeros((3, max(wp, T)), p.dtype)
+    lanes[:, :nb] = part
+    per = wp // T
+    if per >= 8:
+        held = _stack_tree8(lambda k: lanes[:, k * T:(k + 1) * T], per)
+    elif per >= 1:
+        held = _stack_tree(lambda k: lanes[:, k * T:(k + 1) * T], per)
+    else:
+        held = lanes[:, :T]
+    return _block_tree(held, min(wp, T))
+
+
+def _same_bits(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and np.array_equal(
+        a.view(f"u{a.dtype.itemsize}"), b.view(f"u{b.dtype.itemsize}"))
+
+
+#: around one, two and seven chunks, the ragged lengths of NS, and chunk
+#: counts that give the finish 1, 2, 8 and 16 leaves a thread
+DOT3_NS = sorted(set(NS) | {D.CHUNK * k + d for k in (1, 2, 7)
+                            for d in (-1, 0, 1)}
+                 | {D.CHUNK * 256 + 1, D.CHUNK * 257 + 3, D.CHUNK * 1025 + 1,
+                    D.CHUNK * 2049 + 7})
+
+
+@pytest.mark.parametrize("n", DOT3_NS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_dot3_model_is_dot3_plain(dtype, n):
+    """The kernel's order lands on ``dot3_plain``'s bits, over a wide
+    dynamic range so that any other order shows."""
+    g = np.random.default_rng(n)
+    vecs = [(g.standard_normal(n) * 10.0 ** g.uniform(-6, 6, n)).astype(dtype)
+            for _ in range(3)]
+    want = D.dot3_plain(*(torch.from_numpy(v) for v in vecs))
+    assert _same_bits(_dot3_model(vecs), want.numpy())
+
+
+@pytest.mark.parametrize("w", [8, 16, 32, 64, 256])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_tree_sum8_is_tree_sum(dtype, w):
+    """Eight leaves at a time keep ``tree_sum``'s bracketing, bit for bit,
+    at every width the finish meets up to n = 2^27."""
+    g = np.random.default_rng(w)
+    leaves = (g.standard_normal((w, 64)) * 10.0 ** g.uniform(-6, 6, (w, 64))
+              ).astype(dtype)
+    want = _stack_tree(lambda j: leaves[j], w)
+    assert _same_bits(_stack_tree8(lambda j: leaves[j], w), want)
+    assert _same_bits(want, batch.tree_sum(torch.from_numpy(leaves.T),
+                                           dim=-1).numpy())
+
+
+@pytest.mark.parametrize("bad", ["lengths", "rank", "int64", "float16"])
+def test_dot3_rejects_what_the_kernel_does_not_take(bad):
+    """Vectors of different lengths or rank, or a dtype other than
+    float32/float64, raise a ValueError, as ``dot`` does on the card."""
+    v = torch.ones(300, dtype=torch.float64)
+    args = {"lengths": (v, v, v[:299]), "rank": (v, v, v.reshape(3, 100)),
+            "int64": (v.long(),) * 3, "float16": (v.half(),) * 3}[bad]
+    with pytest.raises(ValueError):
+        D.dot3(*args)
 
 
 def test_phase_ops_on_cpu_are_the_plain_versions():
