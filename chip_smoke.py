@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py        # full size, phases 0-14 (6b, 6c); no options
+    python3 chip_smoke.py        # full size, phases 0-15 (6b, 6c); no options
 
 0. The build: every kernel's registers, stack frame and spills from the
    ptxas report; each ELLPACK instantiation with a register tree
@@ -249,10 +249,24 @@
    bound over the measured time ≤ 105 %, the useful fraction (model
    flops, 6·N·D, 2·N·B·S or 2·N·B with N the active parameters, over
    counted flops) and MFU at the measured time.
+15. The four examples of ``examples_torch/`` through their ``main``,
+   in-process on ``cuda:0``: ``quickstart``, ``solve_poisson`` at its
+   default ``n_side`` of 48, profiled (its ``backend="pallas"`` solve
+   launches ``spmv_ell``, ``phase2``, ``phase3`` and ``dot``, its VM
+   solves ``spmv_sell``; each of the first four seen by
+   ``torch.profiler`` as often as its wrapper counted it, within 10 %),
+   ``serve_decode`` and ``train_lm_cggn --size 25m`` at 100 AdamW and 10
+   CGGN steps; then
+   ``quickstart``, ``solve_poisson`` and ``serve_decode`` with ``--device
+   cpu`` on the host.  Every solve CONVERGED on both devices with the same
+   iterations (``pipelined`` ±2, the VM ±1, the plain ``xla`` SpMV at
+   mixed_v1 ±10 %: ``_example_slack``), the same decode token counts,
+   and the loss falling under both optimizers; the phase's wall time
+   printed beside the card's name and power limit.
 
 Launch counters are set to 0 right before the solves of phases 2, 3, 6,
-6b and 6c and before phases 8, 10, 11, 12 and 13, and read right after; each kernel
-of a path must have launched on it (6b: ``spmv_sell`` and ``spmv_ellpack``; 6c runs
+6b and 6c and before phases 8, 10, 11, 12, 13 and 15, and read right
+after; each kernel of a path must have launched on it (6b: ``spmv_sell`` and ``spmv_ellpack``; 6c runs
 the reference's plain banked-ELL product, no kernel; ``dot3`` has no
 solver path: phase 5 launches it; nor have ``spmv_ell`` at
 ``tpu_fp32``/``tpu_v1``/``tpu_v2``).  A tier
@@ -260,12 +274,14 @@ instantiation counts under its kernel's name and, apart, under
 ``<kernel>[<scheme>]``; the ``kernels`` line lists each such entry.
 No path is cut in depth but two LM ones: gemma3-1b's (6 of 26 layers,
 phases 8-10, so that phase 11 fits the time limit) and llama4-scout's (2
-of 48, phase 11: 48 do not fit one card).
+of 48, phase 11: 48 do not fit one card); phase 15 runs
+``train_lm_cggn``'s 25m model at 100 AdamW and 10 CGGN steps (the
+script's defaults are 200 and 20).
 Any failed check raises, and so does any kernel's time under 95 % of its
 bound.  The last line is the JSON result; before the card's line come the
 sharded and distributed phases' numbers, then the LM path's, the
-training path's, the families', whisper's, the suite's and the
-roofline's.
+training path's, the families', whisper's, the suite's, the roofline's
+and the examples'.
 """
 from __future__ import annotations
 
@@ -3739,6 +3755,178 @@ def phase_roofline(cells) -> list:
     return out
 
 
+# ------------------------------------------------------------- phase 15
+EXAMPLES = ROOT / "examples_torch"
+#: train_lm_cggn's arguments on the card: the 25m config at the script's
+#: sequence length and batch, its steps cut to keep the phase near 90 s
+EXAMPLE_TRAIN = ("--size", "25m", "--steps", "100", "--cggn-steps", "10")
+#: the CUDA kernels of the solver example's ``backend="pallas"`` run, by
+#: a part of their names in the profiler, and the launch counters of the
+#: wrappers that launch them (the batched ELLPACK wrapper shares the SpMV)
+EXAMPLE_KERNELS = {"spmv_ellpack_": ("spmv_ell", "spmv_ellpack"),
+                   "dot_chunks": ("dot",), "phase2_chunks": ("phase2",),
+                   "phase3_kernel": ("phase3",)}
+
+
+def _example(name: str):
+    """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _example_run(label: str, fn):
+    """``fn()`` timed on the card, with a header line."""
+    import torch
+    log(f"  --- {label}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _tour_solves(tour) -> dict:
+    """``{label: (iterations, status)}`` of the solver tour's solves."""
+    out = {f"{k}/{n}": (r.iterations, _exit_status(r, SUITE_MAXITER))
+           for k in ("schemes", "methods", "backends")
+           for n, r in tour[k].items()}
+    out["phase_loop"] = (tour["phase_loop"].iterations,
+                         _exit_status(tour["phase_loop"], SUITE_MAXITER))
+    out.update({f"vm/{p}": (int(r["iterations"]),
+                            "CONVERGED" if r["converged"] else "STOPPED")
+                for p, r in tour["vm"].items()})
+    return out
+
+
+def _example_slack(label: str, host_iters: int) -> int:
+    """Iterations a solve of the examples may differ by, card against
+    host.  The kernels are their plain versions bit for bit and the VSR
+    loop sums in the port's own order, so a solve matches exactly, but:
+    pipelined sums its dots with ``torch.dot``, whose order differs
+    between the devices (±2, tests/test_torch_cg.py's rule); the batched
+    VM's plain sums may differ in a last bit (phase 4's ±1); and the plain
+    ``xla`` SpMV at mixed_v1 sums fp32 products through
+    ``index_put_(accumulate=True)``, sorted on the card and in row order on
+    the host, which moves ``poisson_2d(48)`` from 108 iterations to 100
+    (the reference's own ``xla`` and ``pallas`` take 108 and 101 there):
+    10 % of the host's."""
+    if "pipelined" in label:
+        return 2
+    if "/vm/" in label:
+        return 1
+    if label.endswith("/mixed_v1"):
+        return max(1, host_iters // 10)
+    return 0
+
+
+def phase_examples(dev, card, ops) -> tuple:
+    """The four examples in-process on ``cuda:0`` through their ``main``,
+    then the solver and serving ones again with ``--device cpu``.
+    Returns ``(launches, record)``: the counts of the card runs (set to 0
+    before them and read after) and the phase's figures."""
+    t_phase = time.perf_counter()
+    mods = {n: _example(n) for n in ("quickstart", "solve_poisson",
+                                     "serve_decode", "train_lm_cggn")}
+    cuda, walls, per = {}, {}, {}
+    ops.reset_launches()
+    seen = ops.launches()
+    for name, argv in (("quickstart", ["--device", "cuda"]),
+                       ("solve_poisson", ["--device", "cuda"]),
+                       ("serve_decode", ["--device", "cuda"]),
+                       ("train_lm_cggn", [*EXAMPLE_TRAIN, "--device",
+                                          "cuda"])):
+        run = lambda: mods[name].main(argv)        # noqa: E731
+        if name == "solve_poisson":
+            (cuda[name], walls[name]), _, ev = device_profile(
+                lambda: _example_run(f"{name} {' '.join(argv)} "
+                                     "(profiled)", run))
+        else:
+            cuda[name], walls[name] = _example_run(
+                f"{name} {' '.join(argv)}", run)
+        now = ops.launches()
+        per[name] = {k: now[k] - seen.get(k, 0) for k in now
+                     if now[k] != seen.get(k, 0)}
+        seen = now
+        log(f"  {name}: {walls[name]:.2f} s on the card, launches "
+            f"{per[name]}")
+    launches = ops.launches()
+
+    # the solver example's kernels as the profiler sees them
+    profiled = {}
+    for prefix, counters in EXAMPLE_KERNELS.items():
+        c = sum(c for key, _, c in ev if prefix in key)
+        n = sum(per["solve_poisson"].get(k, 0) for k in counters)
+        profiled[prefix] = dict(profiled=c, launched=n)
+        if not (n > 0 and 0.9 * n <= c <= n):
+            raise AssertionError(f"solve_poisson: {prefix}* launched {n} "
+                                 f"times, {c} in the profile")
+    log(f"  solve_poisson profile, kernels seen / launched: "
+        + ", ".join(f"{k}* {v['profiled']} / {v['launched']}"
+                    for k, v in profiled.items()))
+
+    # the same examples on the host: iterations, statuses, tokens
+    cpu = {}
+    for name, argv in (("quickstart", ["--device", "cpu"]),
+                       ("solve_poisson", ["--device", "cpu"]),
+                       ("serve_decode", ["--device", "cpu"])):
+        log(f"  --- {name} {' '.join(argv)}")
+        t0 = time.perf_counter()
+        cpu[name] = mods[name].main(argv)
+        walls[f"{name}/cpu"] = time.perf_counter() - t0
+    solves = {}
+    for dev_name, res in (("cuda", cuda), ("cpu", cpu)):
+        q = res["quickstart"]
+        solves[dev_name] = {
+            **{f"quickstart/{s}": (q[s].iterations,
+                                   _exit_status(q[s], SUITE_MAXITER))
+               for s in ("mixed_v3", "fp64", "mixed_v1")},
+            **{f"solve_poisson/{k}": v
+               for k, v in _tour_solves(res["solve_poisson"]).items()}}
+    bad = []
+    for label, (it, status) in solves["cuda"].items():
+        c_it, c_status = solves["cpu"][label]
+        slack = _example_slack(label, c_it)
+        log(f"    {label:34s} card {status} {it:5d}   host {c_status} "
+            f"{c_it:5d}   (±{slack})")
+        if status != "CONVERGED" or c_status != "CONVERGED" \
+                or abs(it - c_it) > slack:
+            bad.append(f"{label}: card {status}/{it}, host {c_status}/"
+                       f"{c_it} (±{slack})")
+    if bad:
+        raise AssertionError("examples: " + "; ".join(bad))
+    tokens = {d["arch"]: d["tokens"] for d in cuda["serve_decode"]}
+    c_tokens = {d["arch"]: d["tokens"] for d in cpu["serve_decode"]}
+    if tokens != c_tokens:
+        raise AssertionError(f"serve_decode tokens: card {tokens}, host "
+                             f"{c_tokens}")
+    train = cuda["train_lm_cggn"]
+    adamw = [r["loss"] for r in train["adamw"]]
+    cggn = [r["loss"] for r in train["cggn"]]
+    if not (all(map(math.isfinite, adamw + cggn)) and adamw[-1] < adamw[0]
+            and cggn[-1] < cggn[0]):
+        raise AssertionError(f"train_lm_cggn: AdamW {adamw[0]:.4f} -> "
+                             f"{adamw[-1]:.4f}, CGGN {cggn[0]:.4f} -> "
+                             f"{cggn[-1]:.4f}")
+    wall = time.perf_counter() - t_phase
+    log(f"  {len(solves['cuda'])} solves CONVERGED on both devices, "
+        "iterations equal (pipelined ±2, VM ±1, mixed_v1 on xla ±10 %); "
+        "decode tokens "
+        f"{tokens} on both; AdamW loss {adamw[0]:.4f} -> {adamw[-1]:.4f}, "
+        f"CGGN {cggn[0]:.4f} -> {cggn[-1]:.4f}")
+    log(f"  examples phase {wall:.1f} s on {card}; "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+    return launches, dict(
+        wall_s=wall, walls_s=walls, launches=per, profiled=profiled,
+        solves={k: {"cuda": v, "cpu": solves["cpu"][k]}
+                for k, v in solves["cuda"].items()},
+        decode_tokens=tokens, adamw_loss=[adamw[0], adamw[-1]],
+        cggn_loss=[cggn[0], cggn[-1]], card=card)
+
+
 # ------------------------------------------------------------------ main
 def main() -> int:
     if len(sys.argv) > 1:
@@ -3787,7 +3975,9 @@ def main() -> int:
              "sharded": ("spmv_sell", "spmv_ellpack"),
              "lm": ("flash_attention",), "families": ("flash_attention",),
              "whisper": ("flash_attention",),
-             "suite": ("spmv_ell", "dot", "phase2", "phase3")}
+             "suite": ("spmv_ell", "dot", "phase2", "phase3"),
+             "examples": ("spmv_ell", "dot", "phase2", "phase3",
+                          "spmv_sell")}
     launches = {}
     log_phase("[phase 1] kernels against their plain versions")
     timed = phase_kernels(bag, dev)
@@ -3886,6 +4076,10 @@ def main() -> int:
     wb, ws = WHISPER_PREFILL[0]
     cells.append(whisper["prefill"][f"B{wb}xS{ws}"].pop("cell"))
     roofline = phase_roofline(cells)
+    log_phase("[phase 15] the four examples (examples_torch/) on the card "
+              "and on the host")
+    launches["examples"], examples = phase_examples(dev, card, ops)
+    log(f"  launches {launches['examples']}")
     for path, names in paths.items():
         for name in names:
             if launches[path][name] <= 0:
@@ -3933,6 +4127,7 @@ def main() -> int:
     print(json.dumps({"whisper": whisper}), flush=True)
     print(json.dumps({"suite": suite}), flush=True)
     print(json.dumps({"roofline": roofline}), flush=True)
+    print(json.dumps({"examples": examples}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

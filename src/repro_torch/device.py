@@ -13,12 +13,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """The device an entry point runs on: ``"cuda"`` unless the caller
     names another.  A CUDA device without a card raises — the port never
-    carries on quietly on the CPU."""
+    carries on quietly on the CPU.  A CUDA device without an index is the
+    current one with its index (``cuda:0``), the device its tensors
+    report, so the two compare equal."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run the plain PyTorch path")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run the plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -37,13 +37,34 @@ Usage::
     python -m repro_torch.launch.dryrun --all --mesh single
     python -m repro_torch.launch.dryrun --all --mesh multi
 
-The reference's ``REPRO_DRYRUN_OPTS`` hillclimb switches (``bf16_gather``,
-``ssd_chunk64``/``ssd_chunk128``) are not ported yet.
+The reference's hillclimb switches, read once at import from
+``REPRO_DRYRUN_OPTS`` (names separated by commas; unknown names are
+ignored) into :data:`OPTS`::
+
+    REPRO_DRYRUN_OPTS=bf16_gather python -m repro_torch.launch.dryrun \
+        --arch gemma3-1b --shape train_4k
+
+* ``bf16_gather`` — the train step casts every fp32 parameter that is a
+  matrix by the reference's leaf shapes (:func:`~repro_torch.train.optim
+  .matrix_leaf`: a stacked layer's norm gain is one) to bf16 ONCE, before
+  the microbatches (:func:`bf16_view`).  The cast is local to each shard
+  (a DTensor keeps its placements, no collective), so a gather an op
+  needs moves bf16.  The gradients are taken with respect to the bf16
+  view and summed into the fp32 accumulators
+  (:func:`~repro_torch.train.loop.accumulate`); AdamW updates the fp32
+  masters.  The cast is counted once, outside the microbatch
+  multiplicity.  (``dense`` already casts a sharded weight locally before
+  its matmul gathers it, so the switch moves fewer wire bytes here than
+  under XLA: the gradients' reductions.)
+* ``ssd_chunk64`` / ``ssd_chunk128`` — the SSD chunk length of an SSM or
+  hybrid config (default 256; ``ssd_chunk64`` wins when both are set):
+  the chunk-quadratic intra term scales about linearly with the chunk.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -66,10 +87,11 @@ from repro_torch.models.api import decode_step, forward_logits, model_class
 from repro_torch.roofline import (H100, counting, model_flops_decode,
                                   model_flops_train, roofline_terms)
 from repro_torch.roofline.torch_cost import CostWalk
-from repro_torch.train.optim import AdamWConfig, adamw_init
+from repro_torch.train.loop import _mesh_adamw, accumulate
+from repro_torch.train.optim import AdamWConfig, adamw_init, matrix_leaf
 
-__all__ = ["build_cell", "run_cell", "main", "ART_DIR",
-           "TRAIN_MICROBATCHES", "start_fake_group"]
+__all__ = ["build_cell", "run_cell", "main", "ART_DIR", "OPTS",
+           "TRAIN_MICROBATCHES", "start_fake_group", "bf16_view"]
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -80,6 +102,35 @@ TRAIN_MICROBATCHES = 16
 
 #: world size of each production mesh
 WORLD = {"single": 256, "multi": 512}
+
+#: the hillclimb switches (see the module docstring)
+OPTS = frozenset(o for o in os.environ.get(
+    "REPRO_DRYRUN_OPTS", "").split(",") if o)
+
+
+def _with_opts(cfg):
+    """``cfg`` with the SSD chunk :data:`OPTS` asks for (SSM configs)."""
+    if cfg.ssm is None:
+        return cfg
+    if "ssd_chunk64" in OPTS:
+        chunk = 64
+    elif "ssd_chunk128" in OPTS:
+        chunk = 128
+    else:
+        return cfg
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                            chunk=chunk))
+
+
+def bf16_view(params) -> Dict[str, torch.Tensor]:
+    """``bf16_gather``'s view: ``{name: p in bf16}`` for every fp32
+    parameter that is a matrix by the reference's leaf shapes, cast while
+    it is sharded (a DTensor's cast keeps its placements and is local),
+    detached: the leaves the gradients are taken with respect to."""
+    with torch.no_grad():
+        return {n: p.detach().to(torch.bfloat16)
+                for n, p in params.named_parameters()
+                if p.dtype == torch.float32 and matrix_leaf(n, p)}
 
 
 def start_fake_group(world: int) -> None:
@@ -105,7 +156,6 @@ def _local_bytes(tree) -> int:
 
 
 def _leaves(tree):
-    import dataclasses
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, torch.nn.Module):
@@ -137,14 +187,13 @@ def build_cell(arch, shape_name: str, mesh):
     with the train step's microbatch multiplicity applied); ``args`` are
     the step's arguments (their local bytes are the argument bytes)."""
     from torch.distributed.tensor.experimental import implicit_replication
-    cfg = get_config(arch)
+    cfg = _with_opts(get_config(arch))
     shape = SHAPES[shape_name]
-    specs = input_specs(arch, shape_name)
+    specs = input_specs(cfg, shape_name)
     params = distribute(model_class(cfg)(cfg, device="meta"), mesh)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
 
     if shape.kind == "train":
-        from repro_torch.train.loop import _mesh_adamw, _value_and_grad
         opt = AdamWConfig()
         opt_state = adamw_init(params, opt)
         batch = _shard_batch(specs, mesh)
@@ -161,12 +210,12 @@ def build_cell(arch, shape_name: str, mesh):
                     implicit_replication():
                 acc = {n: torch.zeros_like(p, dtype=torch.float32)
                        for n, p in params.named_parameters()}
+                # once a step, before the microbatches
+                view = bf16_view(params) if "bf16_gather" in OPTS else None
                 before = copy.deepcopy(walk)
-                loss, grads = _value_and_grad(params, cfg, micro)
-                for n, g in grads.items():
-                    acc[n].add_(g)
-                del grads
+                accumulate(params, cfg, micro, acc, view)
                 one = _minus(walk, before)
+                del view
                 _mesh_adamw({n: g.div_(k) for n, g in acc.items()},
                             opt_state, params, opt,
                             torch.tensor(3e-4, dtype=torch.float32))

@@ -53,6 +53,7 @@ resume that continues bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -74,25 +75,57 @@ from repro_torch.train.fault import StepWatchdog
 from repro_torch.train.optim import (AdamWConfig, AdamWState, adamw_update,
                                      cosine_schedule)
 
-__all__ = ["make_train_step", "loss_and_grads", "Trainer", "TrainerConfig"]
+__all__ = ["make_train_step", "loss_and_grads", "accumulate", "Trainer",
+           "TrainerConfig"]
 
 
-def _value_and_grad(params, cfg: ModelConfig, batch):
+@contextlib.contextmanager
+def _viewing(module: torch.nn.Module, view: Optional[Dict]):
+    """``module`` with each parameter named in ``view`` replaced by
+    ``view[name]`` (in every module that holds it, so a tied weight is
+    replaced once), restored on exit.  The replacements stay in place
+    through a backward, so a checkpointed block recomputes with them."""
+    if not view:
+        yield
+        return
+    by_id = {id(p): view[n] for n, p in module.named_parameters()
+             if n in view}
+    swapped = []
+    for m in module.modules():
+        for k, p in m._parameters.items():
+            if p is not None and id(p) in by_id:
+                swapped.append((m, k, p))
+    try:
+        for m, k, p in swapped:
+            m._parameters[k] = by_id[id(p)]
+        yield
+    finally:
+        for m, k, p in swapped:
+            m._parameters[k] = p
+
+
+def _value_and_grad(params, cfg: ModelConfig, batch,
+                    view: Optional[Dict] = None):
     """Loss and ``{name: grad}`` of the model on ``batch``.  On DTensor
     parameters (the sharded step) the loss is a plain replicated scalar
-    and each gradient is laid out as its parameter."""
+    and each gradient is laid out as its parameter.  ``view`` (``{name:
+    tensor}``, detached leaves of the parameters' shapes) stands in for
+    the parameters it names, in the forward and the backward, and the
+    gradients are taken with respect to it (the dry run's ``bf16_gather``
+    view)."""
     from torch.distributed.tensor import DTensor
-    names, plist = zip(*params.named_parameters())
-    sharded = isinstance(plist[0], DTensor)
-    params.requires_grad_(True)
-    try:
-        with torch.enable_grad():
-            loss = loss_fn(params, cfg, batch)
-            if sharded:
-                loss = loss.full_tensor()
-            grads = torch.autograd.grad(loss, plist)
-    finally:
-        params.requires_grad_(False)
+    with _viewing(params, view):
+        names, plist = zip(*params.named_parameters())
+        sharded = isinstance(plist[0], DTensor)
+        params.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss = loss_fn(params, cfg, batch)
+                if sharded:
+                    loss = loss.full_tensor()
+                grads = torch.autograd.grad(loss, plist)
+        finally:
+            params.requires_grad_(False)
     if sharded:
         grads = [g.redistribute(p.device_mesh, p.placements)
                  for p, g in zip(plist, grads)]
@@ -128,14 +161,23 @@ def loss_and_grads(params, cfg: ModelConfig, batch, microbatches: int = 1):
     for i in range(k):
         # strided split keeps every microbatch spanning all data shards
         # (the reference's launch/dryrun.py)
-        l, g = _value_and_grad(params, cfg,
-                               {key: _micro(x, i, k)
-                                for key, x in batch.items()})
-        tot_l = tot_l + l
-        for n, gi in g.items():
-            tot_g[n].add_(gi)
-        del g
+        tot_l = tot_l + accumulate(params, cfg, {key: _micro(x, i, k)
+                                                 for key, x in batch.items()},
+                                   tot_g)
     return tot_l / k, {n: g.div_(k) for n, g in tot_g.items()}
+
+
+def accumulate(params, cfg: ModelConfig, micro, acc: Dict[str, torch.Tensor],
+               view: Optional[Dict[str, torch.Tensor]] = None
+               ) -> torch.Tensor:
+    """One microbatch: its loss, and each gradient (with respect to
+    ``view``'s tensor where it names the parameter, see
+    :func:`_value_and_grad`) added into its fp32 accumulator ``acc[name]``
+    in place."""
+    loss, grads = _value_and_grad(params, cfg, micro, view)
+    for n, g in grads.items():
+        acc[n].add_(g)
+    return loss
 
 
 def make_train_step(cfg: ModelConfig, mesh=None, *,

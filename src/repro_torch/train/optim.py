@@ -8,8 +8,9 @@ math runs in fp32.  Plain functions on ``{name: tensor}`` dicts under
 ``torch.no_grad()``, in the reference's arithmetic order (not a
 ``torch.optim.Optimizer``, whose arithmetic differs): clip by the global
 norm first, bias correction from the incremented step, weight decay on
-leaves with ``ndim >= 2`` only (:func:`decays`).  Parameters and moments
-are updated in place.
+leaves with ``ndim >= 2`` only (:func:`decays`, by the reference's leaf
+shapes: :func:`matrix_leaf`).  Parameters and moments are updated in
+place.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from repro_torch.core.gn import param_dict
 from repro_torch.models.transformer import dtype_of
 
 __all__ = ["AdamWConfig", "AdamWState", "adamw_init", "adamw_update",
-           "cosine_schedule", "global_norm", "clip_by_global_norm", "decays"]
+           "cosine_schedule", "global_norm", "clip_by_global_norm", "decays",
+           "matrix_leaf"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,15 +49,19 @@ class AdamWState(NamedTuple):
 _STACKED = ("layers.", "enc_layers.", "dec_layers.")
 
 
-def decays(name: str, p: torch.Tensor) -> bool:
-    """Weight decay on matrices only, judged by the reference's leaf
+def matrix_leaf(name: str, p: torch.Tensor) -> bool:
+    """Whether ``p`` is a leaf of ``ndim >= 2`` by the reference's leaf
     shapes: the reference stacks an LM's layers, so a parameter of layer l
     (``layers.<l>.…``, or the encoder-decoder's ``enc_layers.<l>.…`` and
     ``dec_layers.<l>.…``) is one slice of an ``[L, …]`` leaf there and
-    counts that axis — its per-layer norm gains and biases decay, as the
-    reference's do; ``ln_f.g``, ``enc_ln.g`` and a dict's 1-D leaves do
-    not."""
+    counts that axis — its per-layer norm gains and biases are matrices;
+    ``ln_f.g``, ``enc_ln.g`` and a dict's 1-D leaves are not."""
     return p.ndim + name.startswith(_STACKED) >= 2
+
+
+#: weight decay on matrices only: the per-layer norm gains and biases
+#: decay, as the reference's do
+decays = matrix_leaf
 
 
 def adamw_init(params, cfg: AdamWConfig) -> AdamWState:

@@ -1,6 +1,7 @@
-"""The port stands alone: importing every ``repro_torch`` module pulls in
-neither JAX nor anything of the JAX package, builds no kernel, and the
-default-device entry points refuse to run without a card."""
+"""The port stands alone: importing every ``repro_torch`` module, or any
+of its examples (``examples_torch/``), pulls in neither JAX nor anything
+of the JAX package, builds no kernel, and the default-device entry points
+refuse to run without a card."""
 import json
 import os
 import subprocess
@@ -60,6 +61,35 @@ def test_port_imports_neither_jax_nor_reference():
     assert not pg, "importing the port started a process group"
 
 
+_EXAMPLES_PROBE = """
+import importlib.util, json, sys
+from pathlib import Path
+loaded = []
+for path in sorted(Path(sys.argv[1]).glob("*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    loaded.append(path.stem)
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.")
+                or m == "repro" or m.startswith("repro."))
+print(json.dumps([loaded, leaked]))
+"""
+
+
+def test_examples_import_neither_jax_nor_reference():
+    """Loading every ``examples_torch`` script (its imports; ``main`` does
+    not run) pulls in neither JAX nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE,
+                          str(SRC.parent / "examples_torch")], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded, leaked = json.loads(out.stdout.strip().splitlines()[-1])
+    assert loaded == ["quickstart", "serve_decode", "solve_poisson",
+                      "train_lm_cggn"]
+    assert leaked == [], f"examples imported {leaked}"
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -112,3 +142,17 @@ def test_training_entry_points_default_to_cuda_and_refuse_without_card(
         SyntheticLM(DataConfig(vocab=8, seq_len=4, global_batch=1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch.main(["--arch", "gemma3-1b", "--steps", "1"])
+
+
+def test_default_cuda_device_carries_its_index(monkeypatch):
+    """``jpcg_solve(a)`` on the card compares its operator's device
+    (``cuda:0``) with the resolved one, so ``"cuda"`` and the default
+    resolve to the current device with its index."""
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cuda") == torch.device("cuda", 0)
+    assert resolve_device(torch.device("cuda")) == torch.device("cuda", 0)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device("cpu") == torch.device("cpu")
