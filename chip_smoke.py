@@ -9,9 +9,11 @@
    (``spmv_sell_kernel<…, false>``, all 14: 7 type triples, the TPU
    tier's bf16 ones included, × int16/int32) must have a 0-byte stack
    frame (SELL: and no spills), each bf16 ``flash_attention``
-   instantiation no spills and ``HMMA`` in its SASS; each ``dot3_bulk``
-   instantiation bulk copies (``UBLKCP``) and mbarrier operations
-   (``SYNCS``) in its SASS.
+   instantiation no spills: the ``mma_sync`` ones (``flash_fwd_bf16``)
+   ``HMMA`` in their SASS, the ``wgmma`` ones (``flash_fwd_sm90``, 3 head
+   dims × 2 output dtypes) no stack frame and ``HGMMA`` and ``UTMALDG``
+   (TMA loads) in theirs; each ``dot3_bulk`` instantiation bulk copies
+   (``UBLKCP``) and mbarrier operations (``SYNCS``) in its SASS.
 1. Kernels against their plain PyTorch versions on the card: the SELL
    kernel with each bag's per-lane table (the main bag, an int16 bag,
    lanes whose widths differ ~30×, and 2,049-slot hub rows for its
@@ -110,17 +112,27 @@
    stated tolerance (not bitwise: the kernel sums the softmax over K tiles
    in its own order): gemma3-1b's attention shapes (BH = 8, S = T = 4,096,
    D = 256; causal and window 512; bf16 and fp32) and the reference test's
-   small cases (D = 16/20/32/64/120, S ≠ T, ×30 logits).  A bf16 output is
-   held to one bf16 ulp of the plain version's; the bf16 kernel's fp32
-   output before rounding (a private entry: bf16 in, fp32 out) is held to
-   the plain version on the widened inputs within the fp32 tolerance of
-   the shape.  Timed beside its plain version,
-   ``scaled_dot_product_attention`` (the library yardstick, never called
-   by the port) and its bound (bf16: q·k once and p·v twice — p carried
-   to 16 bits as two bf16 passes — at the bf16 tensor-core peak; fp32:
-   both products at the fp32 CUDA-core peak), at S = 4,096 and at the
-   prefill_32k shape per sequence (BH = 4, S = 32,768, bf16).  A time
-   under 95 % of its bound (a share over 105 %) fails.
+   small cases (D = 16/20/32/64/120, S ≠ T, ×30 logits), llama4-scout's
+   D = 128, and the ``wgmma`` kernel's edges in bf16 (ragged S and T, T
+   below one tile, D 8/16/32/136 between its instantiations, windows),
+   each on the route ``flash_attn._route`` picks, read from the
+   route's launch count: every bf16 case with D % 8 = 0 ``wgmma``
+   (``csrc/flash_attn_sm90.cu``), d20 ``mma_sync`` (``csrc/flash_attn.cu``),
+   fp32 the fp32 kernel.  A bf16 output is held to one bf16 ulp of the
+   plain version's; the bf16 kernel's fp32 output before rounding (a
+   private entry: bf16 in, fp32 out) is held to the plain version on the
+   widened inputs within the fp32 tolerance of the shape.  The bf16 shapes
+   of the main path (gemma's two and the prefill_32k shape per sequence,
+   BH = 4, S = 32,768, global and window 512) are also held on the
+   ``mma_sync`` kernel (a forced route) and both kernels timed in turns,
+   beside the plain version, ``scaled_dot_product_attention`` (the library
+   yardstick, never called by the port), the bound (bf16: q·k once and p·v
+   twice — p carried to 16 bits as two bf16 passes — at the bf16
+   tensor-core peak; fp32: both products at the fp32 CUDA-core peak) and,
+   logged apart, the exponential floor (one exponential a live pair at
+   3.9e12 a second); gemma's fp32 shapes beside the plain version, SDPA
+   and the bound.  A time under 95 % of its bound (a share over 105 %)
+   fails.
 8. gemma3-1b at full width, its depth cut to 6 of 26 layers (5 local and
    the first global one; 463,026,816 fp32 parameters drawn on the card
    from a seeded generator): ``forward_logits(last_only=True)`` at B = 1,
@@ -189,9 +201,10 @@
    ``flash_attention`` composed into granite's layer 0 (D = 64, GQA 16:8)
    and zamba2's shared block (D = 64, 32:32), S = 4,096, B = 2, against
    ``attention()`` within 2e-4 at fp32 and 3e-2 at bf16 (these launches
-   count on the path); after the count is read, the kernel alone at those
-   shapes (bf16 causal) held as in phase 7 and timed beside its plain
-   version, SDPA and its bound.  Then llama4-scout-17b-a16e at full
+   count on the path: ``wgmma`` at bf16, the fp32 kernel at fp32); after
+   the count is read, the kernel alone at those shapes (bf16 causal) held
+   and timed on both bf16 kernels as in phase 7.  Then
+   llama4-scout-17b-a16e at full
    width with its depth cut to 2 of 48 layers (5.2 B parameters; 48 do
    not fit one card):
    ``forward_logits(last_only)`` at S = 4,096 and 4 decode ticks (top-1 of
@@ -205,9 +218,9 @@
    (non-causal, S = T = 1,500, BH 64, D 64: a ragged last 64-key tile)
    and into decoder layer 0's cross attention (S 4,096, T 1,500) against
    ``attention(cross_kv=)`` within 2e-4 at fp32 and 3e-2 at bf16 (these
-   launches count on the path); after the count is read, the kernel
-   alone at both shapes (bf16, non-causal) held as in phase 7 and timed
-   beside its plain version, SDPA and its bound (S·T live pairs).
+   launches count on the path: ``wgmma`` at bf16); after the count is
+   read, the kernel alone at both shapes (bf16, non-causal) held and timed
+   on both bf16 kernels as in phase 7 (S·T live pairs).
    ``DecodeEngine`` (bf16, 8 slots, max_len 1,024) over 10 greedy
    requests of 8–64 tokens with their own audio, 16 new tokens each (two
    slots reused): prefill ms/token (encode and ``prefill_cross``
@@ -271,7 +284,10 @@ the reference's plain banked-ELL product, no kernel; ``dot3`` has no
 solver path: phase 5 launches it; nor have ``spmv_ell`` at
 ``tpu_fp32``/``tpu_v1``/``tpu_v2``).  A tier
 instantiation counts under its kernel's name and, apart, under
-``<kernel>[<scheme>]``; the ``kernels`` line lists each such entry.
+``<kernel>[<scheme>]``, and a ``flash_attention`` launch under
+``flash_attention[<route>]`` (``wgmma``, ``mma_sync``, ``fp32``; the LM
+paths must launch ``wgmma`` and ``fp32``, and no model takes
+``mma_sync``); the ``kernels`` line lists each such entry.
 No path is cut in depth but two LM ones: gemma3-1b's (6 of 26 layers,
 phases 8-10, so that phase 11 fits the time limit) and llama4-scout's (2
 of 48, phase 11: 48 do not fit one card); phase 15 runs
@@ -402,12 +418,13 @@ def phase_build(libs: dict) -> None:
     """Log every kernel's ptxas report; each ELLPACK register-tree
     instantiation must keep a 0-byte stack frame, each SELL register-tree
     instantiation a 0-byte stack frame and no spills, each bf16 flash
-    instantiation must not spill and must run HMMA, and each dot3
-    instantiation must run bulk copies and mbarrier operations."""
+    instantiation must not spill (the wgmma ones: nor keep a stack frame)
+    and must run HMMA (mma_sync) or HGMMA and UTMALDG (wgmma), and each
+    dot3 instantiation must run bulk copies and mbarrier operations."""
     faults = []
     sell = 0
     for source in ("spmv_sell", "spmv_ellpack", "dot", "fused_phase",
-                   "flash_attn"):
+                   "flash_attn", "flash_attn_sm90"):
         for kern, r in ptxas_report(source).items():
             sell += kern.startswith("spmv_sell_kernel<")
             log(f"  {source}: {kern}: {r.get('registers')} registers, "
@@ -421,25 +438,45 @@ def phase_build(libs: dict) -> None:
                     "false>") and (r.get("stack") or r.get("spill_stores")
                                    or r.get("spill_loads")):
                 faults.append(f"{kern}: stack / spills {r}")
-            if kern.startswith("flash_fwd_bf16<") and (
+            if kern.startswith(("flash_fwd_bf16<", "flash_fwd_sm90<")) and (
                     r.get("spill_stores") or r.get("spill_loads")):
                 faults.append(f"{kern} spills: {r}")
+            if kern.startswith("flash_fwd_sm90<") and r.get("stack"):
+                faults.append(f"{kern}: {r.get('stack')} B stack frame")
     if sell != 28:
         faults.append(f"{sell} spmv_sell_kernel instantiations in the ptxas "
                       "report, not 28 (7 type triples × 2 index widths × 2 "
                       "trees)")
-    hmma = sass_counts(libs["flash_attn"], "HMMA")
-    if hmma is None:
-        log("  flash_attn: no cuobjdump in the toolkit; HMMA not checked")
-    else:
-        bf16 = {k: c for k, c in hmma.items()
-                if k.startswith("flash_fwd_bf16<")}
-        log(f"  flash_attn SASS: HMMA per bf16 instantiation {bf16}")
-        if not bf16 or not all(bf16.values()):
-            faults.append(f"flash_fwd_bf16 without HMMA: {bf16}")
+    faults += flash_sass(libs)
     faults += dot3_build(libs)
     if faults:
         raise AssertionError("build: " + "; ".join(faults))
+
+
+def flash_sass(libs: dict) -> list:
+    """The bf16 flash kernels' tensor-core instructions in their SASS:
+    ``HMMA`` in each ``mma_sync`` instantiation (``flash_fwd_bf16``),
+    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in each ``wgmma`` one
+    (``flash_fwd_sm90``; 3 head dims × 2 output dtypes).  Returns the
+    faults."""
+    hmma = sass_counts(libs["flash_attn"], "HMMA")
+    if hmma is None:
+        log("  flash_attn: no cuobjdump in the toolkit; SASS not checked")
+        return []
+    faults = []
+    bf16 = {k: c for k, c in hmma.items() if k.startswith("flash_fwd_bf16<")}
+    log(f"  flash_attn SASS: HMMA per bf16 instantiation {bf16}")
+    if not bf16 or not all(bf16.values()):
+        faults.append(f"flash_fwd_bf16 without HMMA: {bf16}")
+    counts = {op: sass_counts(libs["flash_attn_sm90"], op)
+              for op in ("HGMMA", "UTMALDG")}
+    sm90 = {k: {op: c[k] for op, c in counts.items()}
+            for k in counts["HGMMA"] if k.startswith("flash_fwd_sm90<")}
+    log(f"  flash_attn_sm90 SASS: HGMMA and UTMALDG per instantiation "
+        f"{sm90}")
+    if len(sm90) != 6 or not all(all(c.values()) for c in sm90.values()):
+        faults.append(f"flash_fwd_sm90 without HGMMA or UTMALDG: {sm90}")
+    return faults
 
 
 def dot3_build(libs: dict) -> list:
@@ -1912,8 +1949,12 @@ def gemma_config():
 #: bf16 case is held within one bf16 ulp, and its tolerance (the fp32
 #: one of its shape: 1e-4 at gemma's, 2e-5 at the reference test's) holds
 #: the kernel's fp32 output before rounding (bf16 in, fp32 out) against
-#: the plain version on the widened inputs.  d20: D % 8 != 0, the kernel's
-#: element-wise loads.
+#: the plain version on the widened inputs.  d20: D % 8 != 0, the
+#: ``mma_sync`` kernel's element-wise loads; every other bf16 case takes
+#: ``wgmma``; d128: llama4-scout's head dim.  The last ten are the
+#: ``wgmma`` kernel's edges: S and T off its tiles (the tensor maps' zero
+#: fill past T and the rows past S not written), T below one tile, D
+#: rounded up to 64, 128 or 256 (8, 16, 32, 136), windows across tiles.
 FLASH_CASES = (
     ("gemma/global/bf16", 8, 4096, 4096, 256, True, None, "bfloat16", 1, 1e-4),
     ("gemma/local/bf16", 8, 4096, 4096, 256, True, 512, "bfloat16", 1, 1e-4),
@@ -1931,12 +1972,29 @@ FLASH_CASES = (
     ("d20/bf16", 1, 128, 128, 20, True, None, "bfloat16", 1, 2e-5),
     ("d120/window48", 2, 256, 256, 120, True, 48, "float32", 1, 2e-5),
     ("d120/window48/bf16", 2, 256, 256, 120, True, 48, "bfloat16", 1, 2e-5),
+    ("d128/bf16", 2, 512, 512, 128, True, None, "bfloat16", 1, 2e-5),
+    ("ragged/s200-t333/bf16", 2, 200, 333, 64, False, None, "bfloat16", 1,
+     2e-5),
+    ("causal/s1500/bf16", 2, 1500, 1500, 64, True, None, "bfloat16", 1, 2e-5),
+    ("t28/bf16", 1, 128, 28, 64, False, None, "bfloat16", 1, 2e-5),
+    ("d8/bf16", 1, 128, 128, 8, True, None, "bfloat16", 1, 2e-5),
+    ("d16/window48/bf16", 2, 128, 128, 16, True, 48, "bfloat16", 1, 2e-5),
+    ("d32/window32/bf16", 2, 256, 256, 32, True, 32, "bfloat16", 1, 2e-5),
+    ("d136/bf16", 1, 256, 256, 136, True, None, "bfloat16", 1, 2e-5),
+    ("d256/bf16", 2, 512, 512, 256, True, None, "bfloat16", 1, 2e-5),
+    ("d256/window100/bf16", 2, 512, 512, 256, True, 100, "bfloat16", 1, 2e-5),
+    ("d256/s300-t700/bf16", 1, 300, 700, 256, False, None, "bfloat16", 1,
+     2e-5),
 )
 #: the per-sequence prefill_32k shape, timed (plus the comparisons, at
 #: gemma's fp32 tolerance for the bf16-in, fp32-out check)
 FLASH_LONG = (("prefill32k/global/bf16", 4, 32768, True, None),
               ("prefill32k/local/bf16", 4, 32768, True, 512))
 FLASH_LONG_TOL = 1e-4
+#: exponentials a second on the H100 (MUFU; the FlashAttention-3 paper,
+#: arXiv:2407.08608): one a live pair is a floor logged beside the bound,
+#: not folded into it
+EXP_RATE = 3.9e12
 
 
 def live_pairs(s: int, t: int, causal: bool, window) -> int:
@@ -2003,16 +2061,19 @@ def _share(label, bound, ms) -> float:
     return share
 
 
-def _flash_held(label, q, k, v, kw, tol) -> tuple:
+def _flash_held(label, q, k, v, kw, tol, route=None) -> tuple:
     """Hold the kernel's output against its plain version: fp32 within
     ``tol``; bf16 within one bf16 ulp of |want| (``BF16_RTOL``, floor
     ``BF16_ATOL``), and the bf16 kernel's fp32 output before rounding
     (bf16 in, fp32 out) within ``tol`` of the plain version on the widened
-    inputs.  Returns max |Δ| of the output, and of that fp32 check (None
-    for fp32 inputs)."""
+    inputs.  ``route`` forces a kernel (``flash_attn._flash_attention_route``;
+    None: the public entry, whose route ``_route`` picks).  Returns max |Δ|
+    of the output, and of that fp32 check (None for fp32 inputs)."""
     import torch
     from repro_torch.kernels import flash_attn as FA
-    got = FA.flash_attention(q, k, v, **kw)
+    mask = dict(causal=kw["causal"], window=kw["window"])
+    got = (FA.flash_attention(q, k, v, **kw) if route is None
+           else FA._flash_attention_route(q, k, v, route, **mask))
     want = FA.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
@@ -2031,20 +2092,42 @@ def _flash_held(label, q, k, v, kw, tol) -> tuple:
         raise AssertionError(f"flash_attention {label}: differs from its "
                              f"plain version by more than one bf16 ulp "
                              f"(max |Δ| {err}, worst excess "
-                             f"{float(over.max())})")
+                             f"{float(over.max())}; {_where(over)})")
     del got, want, diff, over
-    wide = FA._flash_attention_wide(q, k, v, causal=kw["causal"],
-                                    window=kw["window"])
+    wide = FA._flash_attention_route(q, k, v, route, wide=True, **mask)
     want = FA.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
     torch.cuda.synchronize()
     wide_err = float((wide - want).abs().max())
     if wide.dtype != torch.float32 or not torch.allclose(
             wide, want, atol=tol, rtol=tol):
+        over = (wide - want).abs() - tol * (1 + want.abs())
         raise AssertionError(f"flash_attention {label}: bf16 in, fp32 out "
                              f"differs from the plain version on the "
                              f"widened inputs beyond {tol} (max |Δ| "
-                             f"{wide_err})")
+                             f"{wide_err}; {_where(over)})")
     return err, wide_err
+
+
+def _where(excess) -> str:
+    """Where an error over its gate lies: the count of elements over it,
+    the first one's (head, row, column), and the share of heads, 16-row
+    groups and 8-column groups that hold any (a layout fault shows as a
+    pattern)."""
+    bad = excess > 0
+    n = int(bad.sum())
+    if not n:
+        return "none over"
+    first = [int(i) for i in bad.nonzero()[0]]
+    bh, s, d = bad.shape
+    rows = bad.any(0).any(1)
+    cols = bad.any(0).any(0)
+    row16 = rows[: s // 16 * 16].view(-1, 16).any(1) if s >= 16 else rows
+    col8 = cols[: d // 8 * 8].view(-1, 8).any(1) if d >= 8 else cols
+    return (f"{n} of {bad.numel()} over; first at {first}; heads "
+            f"{int(bad.any(2).any(1).sum())}/{bh}, 16-row groups "
+            f"{int(row16.sum())}/{row16.numel()}, 8-column groups "
+            f"{int(col8.sum())}/{col8.numel()} "
+            f"(columns {[int(c) for c in cols.nonzero()[:16, 0]]})")
 
 
 def _held_text(tol, wide_err) -> str:
@@ -2054,22 +2137,110 @@ def _held_text(tol, wide_err) -> str:
             f"(max |Δ| {wide_err:.3e})")
 
 
+def _want_route(q) -> str:
+    """The route each input of the smoke must take: bf16 with D % 8 == 0
+    (fresh, aligned tensors) ``wgmma``, other bf16 ``mma_sync``, fp32
+    ``fp32``."""
+    import torch
+    if q.dtype != torch.bfloat16:
+        return "fp32"
+    return "wgmma" if q.shape[2] % 8 == 0 else "mma_sync"
+
+
+def _flash_routed(label, q, k, v, kw, tol) -> tuple:
+    """:func:`_flash_held` through the public entry, with the route its
+    launches counted (``flash_attn.LAUNCHES`` by route), which must be
+    :func:`_want_route`'s.  Returns (max |Δ|, wide max |Δ|, route)."""
+    from repro_torch.kernels import flash_attn as FA
+    before = dict(FA.LAUNCHES)
+    err, wide_err = _flash_held(label, q, k, v, kw, tol)
+    routes = [r for r in FA.ROUTES if FA.LAUNCHES[f"flash_attention[{r}]"]
+              > before[f"flash_attention[{r}]"]]
+    if routes != [_want_route(q)]:
+        raise AssertionError(f"flash_attention {label}: launched on routes "
+                             f"{routes}, not {_want_route(q)}")
+    return err, wide_err, routes[0]
+
+
+def _flash_ab(label, q, k, v, kw, tol, long=False) -> dict:
+    """A bf16 shape of the main path on both bf16 kernels: the ``mma_sync``
+    kernel held as the ``wgmma`` one was (forced route), then both timed in
+    turns (wgmma, mma_sync, mma_sync, wgmma; the faster of each pair),
+    beside the plain version, SDPA, the bound and the exponential floor
+    (live pairs at ``EXP_RATE``).  ``long``: few repetitions (the 32k
+    shapes)."""
+    from repro_torch.kernels import flash_attn as FA
+    mask = dict(causal=kw["causal"], window=kw["window"])
+    err_m, wide_m = _flash_held(f"{label} [mma_sync]", q, k, v, kw, tol,
+                                route="mma_sync")
+    runs = {"wgmma": lambda: FA.flash_attention(q, k, v, **kw),
+            "mma_sync": lambda: FA._flash_attention_route(
+                q, k, v, "mma_sync", **mask)}
+    if long:
+        def timer(fn):
+            return cuda_ms(fn, reps=3, warm=1)
+    else:
+        timer = median_ms
+    ms = {"wgmma": [], "mma_sync": []}
+    for name in ("wgmma", "mma_sync", "mma_sync", "wgmma"):
+        ms[name].append(timer(runs[name]))
+    t_k, t_m = min(ms["wgmma"]), min(ms["mma_sync"])
+    if long:
+        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                      reps=1, warm=0)
+        t_l = cuda_ms(_sdpa(q, k, v, kw["causal"], kw["window"]), reps=2,
+                      warm=1)
+    else:
+        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                      reps=3)
+        t_l = median_ms(_sdpa(q, k, v, kw["causal"], kw["window"]))
+    b = _flash_bound(q, k, v, kw["causal"], kw["window"])
+    share = _share(f"flash_attention {label}", b["bound_ms"], t_k)
+    _share(f"flash_attention {label} [mma_sync]", b["bound_ms"], t_m)
+    return dict(ms=t_k, mma_sync_ms=t_m, plain_ms=t_p, library_ms=t_l,
+                share=share, mma_sync_share=b["bound_ms"] / t_m,
+                mma_sync_err=err_m, mma_sync_wide_err=wide_m,
+                wgmma_faster=t_k < t_m,
+                exp_floor_ms=b["pairs"] / EXP_RATE * 1e3, **b)
+
+
+def _ab_text(r) -> str:
+    return (f"wgmma {r['ms']:.4f} ms ({r['share']:.1%} of the bound), "
+            f"mma_sync {r['mma_sync_ms']:.4f} ({r['mma_sync_share']:.1%}; "
+            f"held, max |Δ| {r['mma_sync_err']:.3e}), plain "
+            f"{r['plain_ms']:.3f}, SDPA {r['library_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, exp floor "
+            f"{r['exp_floor_ms']:.4f} ms ({r['pairs']} live pairs); wgmma "
+            f"{'faster' if r['wgmma_faster'] else 'NOT faster'}")
+
+
 def phase_flash(dev):
     """flash_attention against its plain version on the card, within the
-    stated tolerance, at gemma3-1b's shapes and the reference test's; timed
-    beside its plain version, SDPA and its bound."""
+    stated tolerance, at gemma3-1b's shapes and the reference test's, each
+    on the route ``_route`` picks (logged from the launch counts); the bf16
+    shapes of the main path also on the ``mma_sync`` kernel, and both
+    timed beside the plain version, SDPA, the bound and the exponential
+    floor; the fp32 ones beside the plain version, SDPA and the bound.
+    Returns the head row, every timed row and max |Δ| by route."""
     import torch
     from repro_torch.kernels import flash_attn as FA
-    errs, timed = [], {}
+    errs, timed = {r: [] for r in FA.ROUTES}, {}
     for n, (label, bh, s, t, d, causal, window, dt, scale, tol) in \
             enumerate(FLASH_CASES):
         q, k, v = _qkv(bh, s, t, d, getattr(torch, dt), scale, dev, 70 + n)
-        kw = dict(causal=causal, window=window)
-        err, wide_err = _flash_held(label, q, k, v, kw, tol)
-        errs.append(err)
-        line = (f"  flash {label:26s} BH={bh} S={s} T={t} D={d}: "
+        # one block of each: the reference's contract for ragged S and T
+        # (the kernels pick their own tiles)
+        kw = dict(causal=causal, window=window, block_q=s, block_k=t)
+        err, wide_err, route = _flash_routed(label, q, k, v, kw, tol)
+        errs[route].append(err)
+        line = (f"  flash {label:26s} BH={bh} S={s} T={t} D={d} [{route}]: "
                 f"{_held_text(tol, wide_err)} (max |Δ| {err:.3e})")
-        if label.startswith("gemma/"):
+        if label.startswith("gemma/") and dt == "bfloat16":
+            r = _flash_ab(label, q, k, v, kw, tol)
+            errs["mma_sync"].append(r["mma_sync_err"])
+            timed[label] = dict(r, wide_err=wide_err, route=route)
+            line += "; " + _ab_text(r)
+        elif label.startswith("gemma/"):
             b = _flash_bound(q, k, v, causal, window)
             t_k = median_ms(lambda: FA.flash_attention(q, k, v, **kw))
             t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
@@ -2077,7 +2248,7 @@ def phase_flash(dev):
             t_l = median_ms(_sdpa(q, k, v, causal, window))
             share = _share(f"flash_attention {label}", b["bound_ms"], t_k)
             timed[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                wide_err=wide_err, **b)
+                                max_abs_err=err, route=route, **b)
             line += (f"; {t_k:.4f} ms (plain {t_p:.3f}, SDPA {t_l:.4f}); "
                      f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
                      f"({share:.1%}; {b['pairs']} live pairs)")
@@ -2087,27 +2258,53 @@ def phase_flash(dev):
     for label, bh, s, causal, window in FLASH_LONG:
         q, k, v = _qkv(bh, s, s, 256, torch.bfloat16, 1, dev, 90)
         kw = dict(causal=causal, window=window)
-        b = _flash_bound(q, k, v, causal, window)
-        err, wide_err = _flash_held(label, q, k, v, kw, FLASH_LONG_TOL)
-        errs.append(err)
+        err, wide_err, route = _flash_routed(label, q, k, v, kw,
+                                             FLASH_LONG_TOL)
+        errs[route].append(err)
         torch.cuda.empty_cache()
-        t_k = cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), reps=3,
-                      warm=1)
-        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
-                      reps=1, warm=0)
-        t_l = cuda_ms(_sdpa(q, k, v, causal, window), reps=2, warm=1)
-        share = _share(f"flash_attention {label}", b["bound_ms"], t_k)
-        timed[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                            wide_err=wide_err, **b)
-        log(f"  flash {label:26s} BH={bh} S={s} D=256: "
+        r = _flash_ab(label, q, k, v, kw, FLASH_LONG_TOL, long=True)
+        errs["mma_sync"].append(r["mma_sync_err"])
+        timed[label] = dict(r, wide_err=wide_err, route=route)
+        log(f"  flash {label:26s} BH={bh} S={s} D=256 [{route}]: "
             f"{_held_text(FLASH_LONG_TOL, wide_err)} (max |Δ| "
-            f"{err:.3e}); {t_k:.3f} ms (plain {t_p:.2f}, SDPA {t_l:.3f}); "
-            f"bound {b['bound_ms']:.3f} ms by {b['bound_by']} ({share:.1%})")
+            f"{err:.3e}); {_ab_text(r)}")
         del q, k, v
         torch.cuda.empty_cache()
-    head = dict(timed["gemma/global/bf16"], max_abs_err=max(errs),
+    err_by_route = {r: max(e) for r, e in errs.items()}
+    head = dict(timed["gemma/global/bf16"],
+                max_abs_err=max(err_by_route.values()),
                 shape="BH=8 S=T=4096 D=256 bf16 causal")
-    return head, timed
+    return head, timed, err_by_route
+
+
+#: the flash kernels by route, each an entry of the ``kernels`` line
+FLASH_ROUTES = ("flash_attention[wgmma]", "flash_attention[mma_sync]",
+                "flash_attention[fp32]")
+#: what the LM paths launch: the bf16 compositions take ``wgmma``, the fp32
+#: ones the fp32 kernel; no model's head dim takes ``mma_sync``
+FLASH_PATH = ("flash_attention", "flash_attention[wgmma]",
+              "flash_attention[fp32]")
+
+
+def flash_entries(head, timed, err_by_route) -> dict:
+    """The ``kernels`` line's rows of the flash routes from phase 7: the
+    bf16 kernels at gemma3-1b's global shape (``wgmma`` is the head row,
+    ``mma_sync`` its A/B partner on the same inputs), the fp32 kernel at the
+    same shape in fp32."""
+    same = {k: head[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape")}
+    fp32 = timed["gemma/global/fp32"]
+    return {
+        "flash_attention[wgmma]": dict(head,
+                                       max_abs_err=err_by_route["wgmma"]),
+        "flash_attention[mma_sync]": dict(
+            same, ms=head["mma_sync_ms"],
+            max_abs_err=err_by_route["mma_sync"]),
+        "flash_attention[fp32]": dict(
+            {k: fp32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+            max_abs_err=err_by_route["fp32"],
+            shape="BH=8 S=T=4096 D=256 fp32 causal")}
 
 
 # -------------------------------------------------------------- phase 8
@@ -2780,11 +2977,12 @@ def _family_compose(arch, params, cfg, where, dev):
 def phase_families_flash(dev) -> dict:
     """The kernel alone at the shapes phase 11 composed it into (bf16
     causal, B = 2 × the heads, S = 4,096, D = 64): held against its plain
-    version as phase 7 holds it, and timed beside the plain version, SDPA
-    and its bound.  Outside the path's launch count."""
+    version as phase 7 holds it, on the ``wgmma`` route (and the
+    ``mma_sync`` kernel held too), both timed beside the plain version,
+    SDPA, the bound and the exponential floor.  Outside the path's launch
+    count."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attn as FA
     rows = {}
     for arch, _ in FAMILY_COMPOSE:
         cfg = get_config(arch)
@@ -2792,21 +2990,15 @@ def phase_families_flash(dev) -> dict:
         q, k, v = _qkv(bh, COMPOSE_SEQ, COMPOSE_SEQ, cfg.hd, torch.bfloat16,
                        1, dev, 95)
         kw = dict(causal=True, window=None)
-        err, wide_err = _flash_held(f"{arch} bf16", q, k, v, kw, 2e-5)
-        b = _flash_bound(q, k, v, True, None)
-        t_k = median_ms(lambda: FA.flash_attention(q, k, v, **kw))
-        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
-                      reps=3)
-        t_l = median_ms(_sdpa(q, k, v, True, None))
-        share = _share(f"flash_attention {arch}", b["bound_ms"], t_k)
-        rows[arch] = dict(shape=f"BH={bh} S=T={COMPOSE_SEQ} D={cfg.hd} "
+        err, wide_err, route = _flash_routed(f"{arch} bf16", q, k, v, kw,
+                                             2e-5)
+        r = _flash_ab(f"{arch} bf16", q, k, v, kw, 2e-5)
+        rows[arch] = dict(r, shape=f"BH={bh} S=T={COMPOSE_SEQ} D={cfg.hd} "
                           "bf16 causal", max_abs_err=err, wide_err=wide_err,
-                          ms=t_k, plain_ms=t_p, library_ms=t_l, share=share,
-                          **b)
-        log(f"  flash {rows[arch]['shape']} ({arch}): "
-            f"{_held_text(2e-5, wide_err)} (max |Δ| {err:.3e}); {t_k:.4f} ms "
-            f"(plain {t_p:.3f}, SDPA {t_l:.4f}); bound {b['bound_ms']:.4f} "
-            f"ms by {b['bound_by']} ({share:.1%})")
+                          route=route)
+        log(f"  flash {rows[arch]['shape']} ({arch}) [{route}]: "
+            f"{_held_text(2e-5, wide_err)} (max |Δ| {err:.3e}); "
+            f"{_ab_text(r)}")
         del q, k, v
         torch.cuda.empty_cache()
     return rows
@@ -3225,33 +3417,25 @@ def _whisper_compose(params, cfg, dev) -> dict:
 def phase_whisper_flash(dev) -> dict:
     """The kernel alone at the shapes phase 12 composed it into (bf16,
     non-causal, BH 64, D 64; S = T = 1,500 and S 4,096 × T 1,500): held
-    against its plain version as phase 7 holds it, timed beside the plain
-    version, SDPA and its bound (S·T live pairs).  Outside the path's
-    launch count."""
+    against its plain version as phase 7 holds it, on the ``wgmma`` route
+    (and the ``mma_sync`` kernel held too), both timed beside the plain
+    version, SDPA, the bound (S·T live pairs) and the exponential floor.
+    Outside the path's launch count."""
     import torch
-    from repro_torch.kernels import flash_attn as FA
     bh = WHISPER_COMPOSE_BATCH * 8
     rows = {}
     for label, s in (("encoder", N_FRAMES), ("cross", WHISPER_COMPOSE_SEQ)):
         q, k, v = _qkv(bh, s, N_FRAMES, 64, torch.bfloat16, 1, dev, 96)
         kw = dict(causal=False, window=None, block_q=s, block_k=N_FRAMES)
-        err, wide_err = _flash_held(f"{WHISPER} {label} bf16", q, k, v, kw,
-                                    2e-5)
-        b = _flash_bound(q, k, v, False, None)
-        t_k = median_ms(lambda: FA.flash_attention(q, k, v, **kw))
-        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
-                      reps=3)
-        t_l = median_ms(_sdpa(q, k, v, False, None))
-        share = _share(f"flash_attention {WHISPER} {label}", b["bound_ms"],
-                       t_k)
-        rows[label] = dict(shape=f"BH={bh} S={s} T={N_FRAMES} D=64 bf16 "
+        err, wide_err, route = _flash_routed(f"{WHISPER} {label} bf16", q, k,
+                                             v, kw, 2e-5)
+        r = _flash_ab(f"{WHISPER} {label} bf16", q, k, v, kw, 2e-5)
+        rows[label] = dict(r, shape=f"BH={bh} S={s} T={N_FRAMES} D=64 bf16 "
                            "non-causal", max_abs_err=err, wide_err=wide_err,
-                           ms=t_k, plain_ms=t_p, library_ms=t_l, share=share,
-                           **b)
-        log(f"  flash {rows[label]['shape']} ({WHISPER} {label}): "
-            f"{_held_text(2e-5, wide_err)} (max |Δ| {err:.3e}); {t_k:.4f} ms "
-            f"(plain {t_p:.3f}, SDPA {t_l:.4f}); bound {b['bound_ms']:.4f} "
-            f"ms by {b['bound_by']} ({share:.1%}; {b['pairs']} live pairs)")
+                           route=route)
+        log(f"  flash {rows[label]['shape']} ({WHISPER} {label}) [{route}]: "
+            f"{_held_text(2e-5, wide_err)} (max |Δ| {err:.3e}); "
+            f"{_ab_text(r)}")
         del q, k, v
         torch.cuda.empty_cache()
     return rows
@@ -3973,8 +4157,7 @@ def main() -> int:
              "single": ("spmv_ell", "dot", "phase2", "phase3",
                         "spmv_ell[tpu_v3]"),
              "sharded": ("spmv_sell", "spmv_ellpack"),
-             "lm": ("flash_attention",), "families": ("flash_attention",),
-             "whisper": ("flash_attention",),
+             "lm": FLASH_PATH, "families": FLASH_PATH, "whisper": FLASH_PATH,
              "suite": ("spmv_ell", "dot", "phase2", "phase3"),
              "examples": ("spmv_ell", "dot", "phase2", "phase3",
                           "spmv_sell")}
@@ -4024,7 +4207,9 @@ def main() -> int:
     del single_res
     log_phase(f"[phase 7] flash_attention against its plain version ({ARCH} "
               "shapes)")
-    timed["flash_attention"], flash_timed = phase_flash(dev)
+    timed["flash_attention"], flash_timed, flash_err = phase_flash(dev)
+    timed.update(flash_entries(timed["flash_attention"], flash_timed,
+                               flash_err))
     log_phase(f"[phase 8] {ARCH} at full width, {GEMMA_LAYERS} of 26 layers: "
               "forward, kernel composition")
     ops.reset_launches()
@@ -4086,10 +4271,20 @@ def main() -> int:
                 raise AssertionError(f"{name} never launched on the {path} "
                                      "path")
 
+    csrc = "src/repro_torch/kernels/csrc/"
     sources = {"spmv_sell": "spmv_sell.cu", "spmv_ellpack": "spmv_ellpack.cu",
                "spmv_ell": "spmv_ellpack.cu", "dot": "dot.cu",
                "dot3": "dot.cu", "phase2": "fused_phase.cu",
-               "phase3": "fused_phase.cu", "flash_attention": "flash_attn.cu"}
+               "phase3": "fused_phase.cu",
+               "flash_attention[wgmma]": "flash_attn_sm90.cu",
+               "flash_attention[mma_sync]": "flash_attn.cu",
+               "flash_attention[fp32]": "flash_attn.cu"}
+    sources = {name: csrc + src for name, src in sources.items()}
+    # the total of the three routes: the wrapper, whose ``_route`` picks the
+    # source of each launch (its row names both)
+    sources["flash_attention"] = "src/repro_torch/kernels/flash_attn.py"
+    timed["flash_attention"]["sources"] = [csrc + "flash_attn_sm90.cu",
+                                           csrc + "flash_attn.cu"]
     replaces = {"spmv_sell": "src/repro/kernels/spmv.py:179",
                 "spmv_ellpack": "src/repro/kernels/spmv.py:123",
                 "spmv_ell": "src/repro/kernels/spmv.py:68",
@@ -4098,6 +4293,8 @@ def main() -> int:
                 "phase2": "src/repro/kernels/fused_phase.py:62",
                 "phase3": "src/repro/kernels/fused_phase.py:106",
                 "flash_attention": "src/repro/kernels/flash_attn.py:90"}
+    for name in FLASH_ROUTES:
+        replaces[name] = replaces["flash_attention"]
     # each tier instantiation of the three SpMVs is an entry of its own
     for k in ("spmv_sell", "spmv_ellpack", "spmv_ell"):
         for name in tier(k):
@@ -4108,7 +4305,7 @@ def main() -> int:
         _share(name, t["bound_ms"], t["ms"])
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "source": src,
             "replaces": replaces[name],
             "launches": sum(c.get(name, 0) for c in launches.values()),
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -4116,7 +4313,7 @@ def main() -> int:
             **{k: t[k] for k in ("bound_stored_ms", "bound_streamed_ms",
                                  "streamed_slots", "class_ms", "ms_fp64",
                                  "bound_ms_fp64", "library_dtype", "shape",
-                                 "sizes")
+                                 "sizes", "sources", "mma_sync_ms")
                if k in t}})
     lm["flash_attention"] = flash_timed
     print(json.dumps({"sharded": sharded, "distributed": distributed}),

@@ -17,7 +17,15 @@
 //
 // Two kernels, one per input dtype.
 //
-// flash_fwd_bf16 (bf16 inputs; bf16 out, or fp32 out for a private check).
+// flash_fwd_bf16 (bf16 inputs; bf16 out, or fp32 out for a private check):
+// since csrc/flash_attn_sm90.cu (TMA and wgmma, about twice as fast at every
+// shape of the main path) this is the route only for bf16 inputs that TMA
+// cannot take: a head dim that is not a multiple of 8 (rows of 2 D bytes that
+// are not 16-byte aligned, as D = 20) or a base pointer off a 16-byte
+// boundary (a view into its storage).  repro_torch.kernels.flash_attn._route
+// picks it by shape, before the launch.  It keeps its element-wise loads for
+// those inputs and its cp.async loads for the rest, which only a forced route
+// (the smoke's A/B) sends here.
 // Bound: operations on the tensor cores.  Per live (query, key) pair, q.k is
 // 2 D flops of bf16 x bf16 (exact in fp32), and p.v is 2 D flops taken twice:
 // p is fp32, carried to 16 bits as p_hi = bf16(p) and p_lo = bf16(p - p_hi)
@@ -42,11 +50,10 @@
 // element only on the tiles that cross T, the diagonal or the window's edge.
 // Softmax runs in base 2 on scores pre-scaled by scale * log2(e).  Row max
 // reduces over the four lanes of a quad; each lane keeps a partial l, summed
-// over the quad at the end.  What still holds it back: mma.sync with 8 warps
-// an SM reaches a fraction of the tensor cores' rate (wgmma and TMA are the
-// way to the rest), the softmax of a tile runs between its two products in
-// every warp at once, and every warp computes whole 16 x 64 tiles where the
-// window's edges leave part of them dead.
+// over the quad at the end.  What holds it back: mma.sync with 8 warps an SM
+// reaches a fraction of the tensor cores' rate, and the softmax of a tile runs
+// between its two products in every warp at once; flash_attn_sm90.cu's wgmma
+// and TMA remove both where the shape allows.
 //
 // flash_fwd_fp32 (fp32 inputs and output): fp32 inputs cannot go through the
 // bf16 tensor cores without rounding, so both products are fp32 FMAs on the

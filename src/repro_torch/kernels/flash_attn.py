@@ -4,18 +4,26 @@
 flash_attention`` (the Pallas kernel, body ``_kernel``): online-softmax
 attention on the head-major layout ``[BH, S, D]`` with a causal and/or
 sliding-window mask, whose scores and softmax statistics never leave the
-chip.  The kernels are in ``csrc/flash_attn.cu``, one per input dtype:
+chip.  :func:`_route` picks one of three kernels by shape and dtype,
+before the launch and never on a failure:
 
-* bf16 runs on the tensor cores (``mma.sync`` m16n8k16, fp32
-  accumulation): 8 warps of 16 query rows a block, Q and a two-stage
-  ``cp.async`` ring of 64-key K/V tiles at bf16 in shared memory, the
-  16 × D fp32 accumulator in registers.  q·k is exact in fp32 for bf16
-  inputs; p·v takes p to 16 bits in two bf16 passes
-  (``p_hi = bf16(p)``, ``p_lo = bf16(p − p_hi)``), so its output is
-  within one bf16 ulp of the plain version's.  D is zero-padded to a
-  power of two in shared memory.
-* fp32 stays on the CUDA cores (fp32 FMAs): its inputs cannot take the
-  bf16 tensor cores without rounding.
+* ``"wgmma"`` — bf16 whose head dim is a multiple of 8 and whose base
+  pointers are 16-byte aligned (``csrc/flash_attn_sm90.cu``): TMA loads
+  of 64 × 64 boxes through 3-D tensor maps into a shared-memory ring, a
+  producer warpgroup (one thread issues the loads) and two consumer
+  warpgroups of 64 query rows that take turns on the tensor cores
+  (``wgmma``), so one's softmax runs under the other's products.  TMA
+  takes only 16-byte row strides and bases, hence the condition; every
+  model's head dim (64, 128, 256) takes this route.
+* ``"mma_sync"`` — the other bf16 shapes (D = 20, a view that starts
+  off a 16-byte boundary; ``csrc/flash_attn.cu``): ``mma.sync`` m16n8k16
+  in 8 warps of 16 query rows, ``cp.async`` (or element-wise) loads.
+* ``"fp32"`` — fp32 inputs (``csrc/flash_attn.cu``): fp32 FMAs on the
+  CUDA cores, since the bf16 tensor cores would round them.
+
+Both bf16 kernels take q·k of bf16 values in fp32 (exact) and carry p to
+16 bits in two bf16 passes (``p_hi = bf16(p)``, ``p_lo = bf16(p −
+p_hi)``), so their output is within one bf16 ulp of the plain version's.
 
 It keeps the reference's signature and contract: ``S`` must be a multiple
 of ``min(block_q, S)`` and ``T`` of ``min(block_k, T)``, so a call valid in
@@ -25,11 +33,12 @@ contract.  GQA stays outside: the caller repeats the kv heads.
 
 Parity with the plain version is held to a tolerance, not bit for bit: the
 kernels sum the softmax over K tiles in another order than a plain masked
-softmax, and the bf16 kernel carries p to 16 bits, not 24.
+softmax, and the bf16 kernels carry p to 16 bits, not 24.
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  :data:`LAUNCHES` counts the
-launches.
+tensors it launches the kernel of its route or raises.  :data:`LAUNCHES`
+counts the launches, in all (``"flash_attention"``) and by route
+(``"flash_attention[<route>]"``).
 """
 from __future__ import annotations
 
@@ -41,23 +50,39 @@ from repro_torch.kernels._launch import (I, LL, P, check_cuda, function,
                                          on_cpu, raise_on_error)
 
 __all__ = ["flash_attention", "flash_attention_plain", "LAUNCHES",
-           "reset_launches", "MAX_HEAD_DIM"]
+           "reset_launches", "MAX_HEAD_DIM", "ROUTES"]
 
 _NEG = -1e30
 
 #: Largest head dim the kernel takes (gemma3's 256).
 MAX_HEAD_DIM = 256
 
-#: Kernel launches since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+#: The kernels :func:`_route` picks from.
+ROUTES = ("wgmma", "mma_sync", "fp32")
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the C entry's private code for bf16 in, fp32 out
-_BF16_IN_FP32_OUT = 2
+#: Kernel launches since the last :func:`reset_launches`: all, and by route.
+LAUNCHES: Dict[str, int] = {"flash_attention": 0,
+                            **{f"flash_attention[{r}]": 0 for r in ROUTES}}
+
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel that takes these inputs, from their dtype, head dim and
+    base pointers alone: ``"wgmma"`` for bf16 with D a multiple of 8 and
+    16-byte aligned bases (TMA's row strides and bases), ``"mma_sync"``
+    for the other bf16 inputs, ``"fp32"`` for anything else."""
+    if not all(t.dtype == torch.bfloat16 for t in (q, k, v)):
+        return "fp32"
+    if q.shape[-1] % 8 == 0 and all(t.data_ptr() % 16 == 0
+                                    for t in (q, k, v)):
+        return "wgmma"
+    return "mma_sync"
 
 
 def _check(q, k, v, block_q: int, block_k: int) -> None:
@@ -115,9 +140,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      block_q=block_q, block_k=block_k)
     _check(q, k, v, block_q, block_k)
-    _check_kernel(q, k, v, window, tuple(_DTYPE_CODE))
-    return _launch(_DTYPE_CODE[q.dtype], q, k, v, torch.empty_like(q),
-                   causal, window)
+    _check_kernel(q, k, v, window, _DTYPES)
+    return _launch(_route(q, k, v), q, k, v, torch.empty_like(q), causal,
+                   window)
 
 
 def _check_kernel(q, k, v, window, dtypes) -> None:
@@ -133,19 +158,30 @@ def _check_kernel(q, k, v, window, dtypes) -> None:
     check_cuda("flash_attention", q.device, q=q, k=k, v=v)
 
 
-def _launch(code: int, q, k, v, out, causal, window) -> torch.Tensor:
+def _launch(route: str, q, k, v, out, causal, window) -> torch.Tensor:
+    """One launch of ``route``'s kernel; ``out`` is q's dtype, or fp32 for
+    bf16 inputs (the bf16 kernels before their output rounding)."""
     bh, s, d = q.shape
-    fn = function("flash_attn", "repro_flash_attention",
-                  [I, P, P, P, P, I, I, I, I, I, LL, P])
-    # the kernel reads a negative width as "no window", and takes it in 64
-    # bits (gemma3's global layers pass 2**24)
+    wide = out.dtype != q.dtype
+    if route == "wgmma":
+        lib, name, code = "flash_attn_sm90", "repro_flash_attention_sm90", \
+            int(wide)
+    else:
+        # the mma.sync and fp32 kernels' entry: 0 fp32, 1 bf16, 2 bf16 in
+        # and fp32 out
+        lib, name = "flash_attn", "repro_flash_attention"
+        code = 0 if route == "fp32" else 2 if wide else 1
+    fn = function(lib, name, [I, P, P, P, P, I, I, I, I, I, LL, P])
+    # a negative width reads as "no window", taken in 64 bits (gemma3's
+    # global layers pass 2**24)
     with torch.cuda.device(q.device):
         err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  out.data_ptr(), bh, s, k.shape[1], d, int(causal),
                  -1 if window is None else int(window),
                  torch.cuda.current_stream().cuda_stream)
-    raise_on_error("flash_attn", "flash_attention", err)
+    raise_on_error(lib, "flash_attention", err)
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention[{route}]"] += 1
     return out
 
 
@@ -156,11 +192,38 @@ def _flash_attention_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k, v in, fp32 out): a check of the tensor-core arithmetic against the
     plain version on the widened inputs, at the fp32 tolerance.  Not a
     path of the model; on the CPU, the plain version on widened inputs."""
+    return _flash_attention_route(q, k, v, None, causal=causal,
+                                  window=window, wide=True)
+
+
+def _flash_attention_route(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, route: Optional[str], *,
+                           causal: bool = True, window=None,
+                           wide: bool = False) -> torch.Tensor:
+    """:func:`flash_attention` through a route forced by the caller
+    (``None``: :func:`_route`'s), to hold and time the two bf16 kernels on
+    the same inputs; ``wide``: bf16 in, fp32 out.  A route that cannot take
+    the inputs raises: ``"wgmma"`` only where :func:`_route` picks it,
+    ``"mma_sync"`` for any bf16 inputs, ``"fp32"`` for fp32 ones.  Not a
+    path of the model; on the CPU, the plain version (on widened inputs
+    when ``wide``), and nothing is launched."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"flash_attention: route {route!r} not in {ROUTES}")
     if on_cpu("flash_attention", q):
-        return flash_attention_plain(q.float(), k.float(), v.float(),
-                                     causal=causal, window=window)
+        if wide:
+            q, k, v = q.float(), k.float(), v.float()
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     block_q=q.shape[1], block_k=k.shape[1])
     _check(q, k, v, q.shape[1], k.shape[1])
-    _check_kernel(q, k, v, window, (torch.bfloat16,))
-    return _launch(_BF16_IN_FP32_OUT, q, k, v,
-                   torch.empty(q.shape, dtype=torch.float32, device=q.device),
+    _check_kernel(q, k, v, window, (torch.bfloat16,) if wide else _DTYPES)
+    picked = _route(q, k, v)
+    route = picked if route is None else route
+    if route != picked and (route == "fp32" or picked == "fp32"
+                            or route == "wgmma"):
+        raise ValueError(f"flash_attention: route {route!r} does not take "
+                         f"these inputs ({q.dtype}, D = {q.shape[2]}; "
+                         f"_route picks {picked!r})")
+    dtype = torch.float32 if wide else q.dtype
+    return _launch(route, q, k, v,
+                   torch.empty(q.shape, dtype=dtype, device=q.device),
                    causal, window)

@@ -159,10 +159,12 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
 
 
 def _tc_model(q, k, v, *, causal, window=None, block_k=64):
-    """The arithmetic of ``csrc/flash_attn.cu``'s ``flash_fwd_bf16`` in
-    plain torch, fp32 out: q·k of bf16 values in fp32 (exact products),
-    scaled by one fp32 constant ``D ** -0.5 · log2(e)`` and masked to
-    −1e30; an online softmax in base 2 over 64-key tiles; p split into
+    """The arithmetic of the bf16 kernels (``csrc/flash_attn.cu``'s
+    ``flash_fwd_bf16``, 64-key tiles, and ``csrc/flash_attn_sm90.cu``'s
+    ``flash_fwd_sm90``, 64 or 128) in plain torch, fp32 out: q·k of bf16
+    values in fp32 (exact products), scaled by one fp32 constant
+    ``D ** -0.5 · log2(e)`` and masked to −1e30; an online softmax in base
+    2 over ``block_k``-key tiles; p split into
     ``p_hi = bf16(p)`` and ``p_lo = bf16(p − p_hi)``, each multiplied by
     bf16 v in fp32, while ``l`` sums the fp32 p.  A test model, not a
     plain version: the order of each fp32 sum is torch's."""
@@ -204,20 +206,22 @@ TC_SHAPES = [(2, 256, 256, 64, True, None), (2, 512, 512, 64, True, None),
              (2, 128, 128, 120, True, 48), (1, 128, 128, 20, True, None)]
 
 
+@pytest.mark.parametrize("block_k", [64, 128])
 @pytest.mark.parametrize(
     "bh,s,t,d,causal,window", TC_SHAPES,
     ids=[f"bh{b}-s{s}-t{t}-d{d}-{'causal' if c else 'full'}-w{w}"
          for b, s, t, d, c, w in TC_SHAPES])
-def test_tensor_core_numerics_model(bh, s, t, d, causal, window):
-    """The bf16 kernel's arithmetic (:func:`_tc_model`) meets the card's
-    gates: rounded to bf16, within one bf16 ulp of the plain version and
-    within 3e-2 of the JAX reference; before rounding, within 2e-5 (the
-    fp32 tolerance of these shapes) of the plain version on the widened
-    inputs."""
+def test_tensor_core_numerics_model(bh, s, t, d, causal, window, block_k):
+    """The bf16 kernels' arithmetic (:func:`_tc_model`) meets the card's
+    gates at both key tiles they use (64: ``mma_sync``, and ``wgmma`` at
+    D = 256; 128: ``wgmma`` at D <= 128): rounded to bf16, within one bf16
+    ulp of the plain version and within 3e-2 of the JAX reference; before
+    rounding, within 2e-5 (the fp32 tolerance of these shapes) of the plain
+    version on the widened inputs."""
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(bh, s, t, d, seed=d + s),
                                        "bfloat16")
     kw = dict(causal=causal, window=window)
-    wide = _tc_model(tq, tk, tv, **kw)
+    wide = _tc_model(tq, tk, tv, block_k=block_k, **kw)
     got = wide.to(torch.bfloat16).float()
     want = flash_attention_plain(tq, tk, tv, **kw).float()
     excess = (got - want).abs() - (BF16_RTOL * want.abs() + BF16_ATOL)
@@ -241,3 +245,59 @@ def test_wide_check_entry_on_cpu():
                                  causal=True, window=48)
     assert got.dtype == torch.float32 and torch.equal(got, want)
     assert ops.launches()["flash_attention"] == 0
+
+
+# ------------------------------------------------------------ routes
+@pytest.mark.parametrize("d", [16, 20, 32, 64, 120, 128, 256])
+def test_route_by_shape(d):
+    """``_route`` picks the kernel from dtype, head dim and base pointers
+    alone: bf16 with D % 8 == 0 on 16-byte aligned bases takes ``wgmma``,
+    other bf16 ``mma_sync``, and fp32 neither bf16 route."""
+    from repro_torch.kernels.flash_attn import _route
+    bf = torch.zeros((2, 64, d), dtype=torch.bfloat16)
+    assert _route(bf, bf, bf) == ("wgmma" if d % 8 == 0 else "mma_sync")
+    f32 = torch.zeros((2, 64, d))
+    assert _route(f32, f32, f32) == "fp32"
+    # a view whose base is one element (2 bytes) into its storage
+    off = torch.zeros(2 * 64 * d + 1, dtype=torch.bfloat16)[1:].view(2, 64, d)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    assert _route(off, bf, bf) == _route(bf, bf, off) == "mma_sync"
+    f32_off = torch.zeros(2 * 64 * d + 1)[1:].view(2, 64, d)
+    assert _route(f32_off, f32_off, f32_off) == "fp32"
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync", None])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("s,t", [(128, 128), (200, 333)])
+def test_forced_route_entry_on_cpu(route, wide, s, t):
+    """The private entry that forces a route: on the CPU it is the plain
+    version (on the widened inputs when ``wide``), and launches nothing.
+    It takes S and T as one block each, as on the card, so ragged S and T
+    pass."""
+    from repro_torch.kernels.flash_attn import _flash_attention_route
+    ops.reset_launches()
+    tq, tk, tv = (torch.from_numpy(a).bfloat16()
+                  for a in _qkv(2, s, t, 64, seed=4))
+    got = _flash_attention_route(tq, tk, tv, route, causal=True, window=48,
+                                 wide=wide)
+    if wide:
+        tq, tk, tv = tq.float(), tk.float(), tv.float()
+    want = flash_attention_plain(tq, tk, tv, causal=True, window=48,
+                                 block_q=s, block_k=t)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert set(ops.launches().values()) == {0}
+    with pytest.raises(ValueError, match="route"):
+        _flash_attention_route(tq, tk, tv, "tma", causal=True)
+
+
+def test_route_counts_registered():
+    """``LAUNCHES`` keeps its total and one count per route, all cleared by
+    ``ops.reset_launches``."""
+    from repro_torch.kernels import flash_attn as FA
+    assert FA.ROUTES == ("wgmma", "mma_sync", "fp32")
+    assert set(FA.LAUNCHES) == {"flash_attention"} | {
+        f"flash_attention[{r}]" for r in FA.ROUTES}
+    FA.LAUNCHES["flash_attention[wgmma]"] = 3
+    ops.reset_launches()
+    assert set(ops.launches()) >= set(FA.LAUNCHES)
+    assert set(FA.LAUNCHES.values()) == {0}

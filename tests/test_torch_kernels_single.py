@@ -408,7 +408,8 @@ def test_phase_ops_on_cpu_are_the_plain_versions():
                "phase2", "phase3", "flash_attention"}
     tier = {f"{k}[{s}]" for k in ("spmv_sell", "spmv_ellpack", "spmv_ell")
             for s in ("tpu_fp32", "tpu_v1", "tpu_v2", "tpu_v3")}
-    assert set(ops.launches()) == kernels | tier
+    routes = {f"flash_attention[{r}]" for r in ("wgmma", "mma_sync", "fp32")}
+    assert set(ops.launches()) == kernels | tier | routes
     # the chunked sums agree with batch.tree_sum spelled by hand
     prod = torch.stack([rn * rn, rn * (rn / dg)])
     assert torch.equal(s, D.chunk_tree(prod))
