@@ -12,8 +12,11 @@
    instantiation no spills: the ``mma_sync`` ones (``flash_fwd_bf16``)
    ``HMMA`` in their SASS, the ``wgmma`` ones (``flash_fwd_sm90``, 3 head
    dims × 2 output dtypes) no stack frame and ``HGMMA`` and ``UTMALDG``
-   (TMA loads) in theirs; each ``dot3_bulk`` instantiation bulk copies
-   (``UBLKCP``) and mbarrier operations (``SYNCS``) in its SASS.
+   (TMA loads) in theirs; each fp32 ``tf32x3`` one
+   (``flash_fwd_tf32``, 3 head dims) no stack frame and no spills, and
+   ``HGMMA`` and ``UBLKCP`` (its bulk copies) in its SASS; each
+   ``dot3_bulk`` instantiation bulk copies (``UBLKCP``) and mbarrier
+   operations (``SYNCS``) in its SASS.
 1. Kernels against their plain PyTorch versions on the card: the SELL
    kernel with each bag's per-lane table (the main bag, an int16 bag,
    lanes whose widths differ ~30×, and 2,049-slot hub rows for its
@@ -113,12 +116,17 @@
    in its own order): gemma3-1b's attention shapes (BH = 8, S = T = 4,096,
    D = 256; causal and window 512; bf16 and fp32) and the reference test's
    small cases (D = 16/20/32/64/120, S ≠ T, ×30 logits), llama4-scout's
-   D = 128, and the ``wgmma`` kernel's edges in bf16 (ragged S and T, T
+   D = 128, the ``wgmma`` kernel's edges in bf16 (ragged S and T, T
    below one tile, D 8/16/32/136 between its instantiations, windows),
-   each on the route ``flash_attn._route`` picks, read from the
-   route's launch count: every bf16 case with D % 8 = 0 ``wgmma``
+   fp32 D = 36 (``tf32x3`` padding D to 64) and D = 42 and views one
+   element off a 16-byte boundary (which ``tf32x3`` does not take), each
+   on the route ``flash_attn._route`` picks, read from the route's launch
+   count: every bf16 case with D % 8 = 0 ``wgmma``
    (``csrc/flash_attn_sm90.cu``), d20 ``mma_sync`` (``csrc/flash_attn.cu``),
-   fp32 the fp32 kernel.  A bf16 output is held to one bf16 ulp of the
+   every fp32 case with D % 4 = 0 and D > 32 ``tf32x3``
+   (``csrc/flash_attn_tf32.cu``), the rest ``fp32`` (the CUDA-core kernel,
+   ``csrc/flash_attn.cu``: D ≤ 32, ``_route``'s carve-out for the
+   reference test's ×30 logits, d42 and the offset views).  A bf16 output is held to one bf16 ulp of the
    plain version's; the bf16 kernel's fp32 output before rounding (a
    private entry: bf16 in, fp32 out) is held to the plain version on the
    widened inputs within the fp32 tolerance of the shape.  The bf16 shapes
@@ -128,11 +136,15 @@
    beside the plain version, ``scaled_dot_product_attention`` (the library
    yardstick, never called by the port), the bound (bf16: q·k once and p·v
    twice — p carried to 16 bits as two bf16 passes — at the bf16
-   tensor-core peak; fp32: both products at the fp32 CUDA-core peak) and,
+   tensor-core peak; ``tf32x3``: both products as three TF32 products each
+   at the TF32 tensor-core peak; the CUDA-core kernel: both products at
+   the fp32 CUDA-core peak; bytes: q, k, v read and o written once) and,
    logged apart, the exponential floor (one exponential a live pair at
-   3.9e12 a second); gemma's fp32 shapes beside the plain version, SDPA
-   and the bound.  A time under 95 % of its bound (a share over 105 %)
-   fails.
+   3.9e12 a second); gemma's fp32 shapes likewise on both fp32 kernels
+   (``tf32x3`` and, forced, the CUDA-core one: held, timed in turns,
+   each beside its own bound; ``tf32x3``'s pre-pass, its scratch bytes and
+   its profiled time logged beside the bound, not in it).  A time under
+   95 % of its bound (a share over 105 %) fails.
 8. gemma3-1b at full width, its depth cut to 6 of 26 layers (5 local and
    the first global one; 463,026,816 fp32 parameters drawn on the card
    from a seeded generator): ``forward_logits(last_only=True)`` at B = 1,
@@ -201,9 +213,9 @@
    ``flash_attention`` composed into granite's layer 0 (D = 64, GQA 16:8)
    and zamba2's shared block (D = 64, 32:32), S = 4,096, B = 2, against
    ``attention()`` within 2e-4 at fp32 and 3e-2 at bf16 (these launches
-   count on the path: ``wgmma`` at bf16, the fp32 kernel at fp32); after
-   the count is read, the kernel alone at those shapes (bf16 causal) held
-   and timed on both bf16 kernels as in phase 7.  Then
+   count on the path: ``wgmma`` at bf16, ``tf32x3`` at fp32); after
+   the count is read, the kernel alone at those shapes (causal) held and
+   timed on both bf16 kernels and on both fp32 kernels as in phase 7.  Then
    llama4-scout-17b-a16e at full
    width with its depth cut to 2 of 48 layers (5.2 B parameters; 48 do
    not fit one card):
@@ -218,9 +230,10 @@
    (non-causal, S = T = 1,500, BH 64, D 64: a ragged last 64-key tile)
    and into decoder layer 0's cross attention (S 4,096, T 1,500) against
    ``attention(cross_kv=)`` within 2e-4 at fp32 and 3e-2 at bf16 (these
-   launches count on the path: ``wgmma`` at bf16); after the count is
-   read, the kernel alone at both shapes (bf16, non-causal) held and timed
-   on both bf16 kernels as in phase 7 (S·T live pairs).
+   launches count on the path: ``wgmma`` at bf16, ``tf32x3`` at fp32);
+   after the count is read, the kernel alone at both shapes (non-causal)
+   held and timed on both bf16 kernels and on both fp32 kernels as in
+   phase 7 (S·T live pairs).
    ``DecodeEngine`` (bf16, 8 slots, max_len 1,024) over 10 greedy
    requests of 8–64 tokens with their own audio, 16 new tokens each (two
    slots reused): prefill ms/token (encode and ``prefill_cross``
@@ -285,9 +298,10 @@ solver path: phase 5 launches it; nor have ``spmv_ell`` at
 ``tpu_fp32``/``tpu_v1``/``tpu_v2``).  A tier
 instantiation counts under its kernel's name and, apart, under
 ``<kernel>[<scheme>]``, and a ``flash_attention`` launch under
-``flash_attention[<route>]`` (``wgmma``, ``mma_sync``, ``fp32``; the LM
-paths must launch ``wgmma`` and ``fp32``, and no model takes
-``mma_sync``); the ``kernels`` line lists each such entry.
+``flash_attention[<route>]`` (``wgmma``, ``mma_sync``, ``tf32x3``,
+``fp32``; the LM paths must launch ``wgmma`` and ``tf32x3`` and never
+``fp32``, and no model takes ``mma_sync``); the ``kernels`` line lists
+each such entry.
 No path is cut in depth but two LM ones: gemma3-1b's (6 of 26 layers,
 phases 8-10, so that phase 11 fits the time limit) and llama4-scout's (2
 of 48, phase 11: 48 do not fit one card); phase 15 runs
@@ -418,13 +432,15 @@ def phase_build(libs: dict) -> None:
     """Log every kernel's ptxas report; each ELLPACK register-tree
     instantiation must keep a 0-byte stack frame, each SELL register-tree
     instantiation a 0-byte stack frame and no spills, each bf16 flash
-    instantiation must not spill (the wgmma ones: nor keep a stack frame)
-    and must run HMMA (mma_sync) or HGMMA and UTMALDG (wgmma), and each
-    dot3 instantiation must run bulk copies and mbarrier operations."""
+    instantiation must not spill (the wgmma ones: nor keep a stack frame),
+    and must run HMMA (mma_sync) or HGMMA and UTMALDG (wgmma), each fp32
+    tf32x3 one must keep no stack frame, not spill and run HGMMA and bulk
+    copies, and each dot3 instantiation must run bulk copies and mbarrier
+    operations."""
     faults = []
     sell = 0
     for source in ("spmv_sell", "spmv_ellpack", "dot", "fused_phase",
-                   "flash_attn", "flash_attn_sm90"):
+                   "flash_attn", "flash_attn_sm90", "flash_attn_tf32"):
         for kern, r in ptxas_report(source).items():
             sell += kern.startswith("spmv_sell_kernel<")
             log(f"  {source}: {kern}: {r.get('registers')} registers, "
@@ -438,10 +454,12 @@ def phase_build(libs: dict) -> None:
                     "false>") and (r.get("stack") or r.get("spill_stores")
                                    or r.get("spill_loads")):
                 faults.append(f"{kern}: stack / spills {r}")
-            if kern.startswith(("flash_fwd_bf16<", "flash_fwd_sm90<")) and (
+            if kern.startswith(("flash_fwd_bf16<", "flash_fwd_sm90<",
+                                "flash_fwd_tf32<")) and (
                     r.get("spill_stores") or r.get("spill_loads")):
                 faults.append(f"{kern} spills: {r}")
-            if kern.startswith("flash_fwd_sm90<") and r.get("stack"):
+            if kern.startswith(("flash_fwd_sm90<", "flash_fwd_tf32<")) and \
+                    r.get("stack"):
                 faults.append(f"{kern}: {r.get('stack')} B stack frame")
     if sell != 28:
         faults.append(f"{sell} spmv_sell_kernel instantiations in the ptxas "
@@ -454,11 +472,12 @@ def phase_build(libs: dict) -> None:
 
 
 def flash_sass(libs: dict) -> list:
-    """The bf16 flash kernels' tensor-core instructions in their SASS:
-    ``HMMA`` in each ``mma_sync`` instantiation (``flash_fwd_bf16``),
-    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in each ``wgmma`` one
-    (``flash_fwd_sm90``; 3 head dims × 2 output dtypes).  Returns the
-    faults."""
+    """The flash kernels' tensor-core instructions in their SASS: ``HMMA``
+    in each ``mma_sync`` instantiation (``flash_fwd_bf16``), ``HGMMA``
+    (wgmma) and ``UTMALDG`` (TMA loads) in each ``wgmma`` one
+    (``flash_fwd_sm90``; 3 head dims × 2 output dtypes), ``HGMMA`` and
+    ``UBLKCP`` (bulk copies) in each ``tf32x3`` one (``flash_fwd_tf32``;
+    3 head dims).  Returns the faults."""
     hmma = sass_counts(libs["flash_attn"], "HMMA")
     if hmma is None:
         log("  flash_attn: no cuobjdump in the toolkit; SASS not checked")
@@ -476,6 +495,13 @@ def flash_sass(libs: dict) -> list:
         f"{sm90}")
     if len(sm90) != 6 or not all(all(c.values()) for c in sm90.values()):
         faults.append(f"flash_fwd_sm90 without HGMMA or UTMALDG: {sm90}")
+    counts = {op: sass_counts(libs["flash_attn_tf32"], op)
+              for op in ("HGMMA", "UBLKCP")}
+    tf32 = {k: {op: c[k] for op, c in counts.items()}
+            for k in counts["HGMMA"] if k.startswith("flash_fwd_tf32<")}
+    log(f"  flash_attn_tf32 SASS: HGMMA and UBLKCP per instantiation {tf32}")
+    if len(tf32) != 3 or not all(all(c.values()) for c in tf32.values()):
+        faults.append(f"flash_fwd_tf32 without HGMMA or UBLKCP: {tf32}")
     return faults
 
 
@@ -1951,10 +1977,15 @@ def gemma_config():
 #: the kernel's fp32 output before rounding (bf16 in, fp32 out) against
 #: the plain version on the widened inputs.  d20: D % 8 != 0, the
 #: ``mma_sync`` kernel's element-wise loads; every other bf16 case takes
-#: ``wgmma``; d128: llama4-scout's head dim.  The last ten are the
-#: ``wgmma`` kernel's edges: S and T off its tiles (the tensor maps' zero
-#: fill past T and the rows past S not written), T below one tile, D
-#: rounded up to 64, 128 or 256 (8, 16, 32, 136), windows across tiles.
+#: ``wgmma``; d128: llama4-scout's head dim.  The fp32 cases with D > 32
+#: take ``tf32x3`` (d36: D padded to 64); D ≤ 32 (``_route``'s carve-out
+#: for the ×30 logits), d42 (D % 4 != 0) and ``/offset`` (q, k and v views
+#: one element past a 16-byte boundary) keep the CUDA-core kernel held.
+#: The ten before the last three are the ``wgmma`` kernel's edges: S and T
+#: off its tiles (the tensor maps' zero fill past T and the rows past S not
+#: written), T below one tile, D rounded up to 64, 128 or 256 (8, 16, 32,
+#: 136), windows across tiles.  The last three hold the two fp32 kernels'
+#: split (appended, so every earlier case keeps its seed, 70 + its index).
 FLASH_CASES = (
     ("gemma/global/bf16", 8, 4096, 4096, 256, True, None, "bfloat16", 1, 1e-4),
     ("gemma/local/bf16", 8, 4096, 4096, 256, True, 512, "bfloat16", 1, 1e-4),
@@ -1984,7 +2015,9 @@ FLASH_CASES = (
     ("d256/bf16", 2, 512, 512, 256, True, None, "bfloat16", 1, 2e-5),
     ("d256/window100/bf16", 2, 512, 512, 256, True, 100, "bfloat16", 1, 2e-5),
     ("d256/s300-t700/bf16", 1, 300, 700, 256, False, None, "bfloat16", 1,
-     2e-5),
+     2e-5),    ("d36/window48", 2, 128, 128, 36, True, 48, "float32", 1, 2e-5),
+    ("d42", 2, 128, 128, 42, True, None, "float32", 1, 2e-5),
+    ("causal/d64/offset", 2, 512, 512, 64, True, None, "float32", 1, 2e-5),
 )
 #: the per-sequence prefill_32k shape, timed (plus the comparisons, at
 #: gemma's fp32 tolerance for the bf16-in, fp32-out check)
@@ -2031,22 +2064,29 @@ def _sdpa(q, k, v, causal, window):
                                                   attn_mask=mask)
 
 
-def _flash_bound(q, k, v, causal, window) -> dict:
-    """Bytes: q, k, v read once, o written once.  Operations, per live
-    pair: bf16 inputs take q·k (2·D flops, exact in fp32) and p·v twice
-    (p carried to 16 bits as two bf16 passes) at the bf16 tensor-core
-    peak; fp32 inputs take both products (4·D) at the fp32 CUDA-core
-    peak, since the bf16 tensor cores would round them."""
-    import torch
+def _flash_bound(q, k, v, causal, window, route=None) -> dict:
+    """The least time of ``route``'s work (None: the route ``_route``
+    picks).  Bytes: q, k, v read once, o written once (``tf32x3``'s
+    pre-pass scratch is a choice of its design, not work of the function,
+    and is logged apart).  Operations, per live pair: bf16 inputs take q·k
+    (2·D flops, exact in fp32) and p·v twice (p carried to 16 bits as two
+    bf16 passes) at the bf16 tensor-core peak; fp32 inputs on ``tf32x3``
+    take both products (4·D) as three TF32 products each at the TF32
+    tensor-core peak, and on the CUDA-core kernel (``fp32``) once at the
+    fp32 CUDA-core peak."""
+    from repro_torch.kernels import flash_attn as FA
     from repro_torch.roofline.model import H100
+    route = FA._route(q, k, v) if route is None else route
     bh, s, d = q.shape
     pairs = live_pairs(s, k.shape[1], causal, window) * bh
     flops = 2 * d * pairs
-    t_bytes = (2 * nbytes(q) + nbytes(k, v)) / H100.hbm_bw * 1e3
-    if q.dtype == torch.bfloat16:
+    if route in ("wgmma", "mma_sync"):
         t_ops = 3 * flops / H100.peak_flops("bf16") * 1e3
+    elif route == "tf32x3":
+        t_ops = 3 * 2 * flops / H100.peak_flops("tf32") * 1e3
     else:
         t_ops = 2 * flops / H100.peak_flops("fp32") * 1e3
+    t_bytes = (2 * nbytes(q) + nbytes(k, v)) / H100.hbm_bw * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 pairs=pairs)
@@ -2137,14 +2177,26 @@ def _held_text(tol, wide_err) -> str:
             f"(max |Δ| {wide_err:.3e})")
 
 
-def _want_route(q) -> str:
-    """The route each input of the smoke must take: bf16 with D % 8 == 0
-    (fresh, aligned tensors) ``wgmma``, other bf16 ``mma_sync``, fp32
-    ``fp32``."""
+def _want_route(q, k, v) -> str:
+    """The route each input of the smoke must take: on 16-byte aligned
+    bases, bf16 with D % 8 == 0 ``wgmma`` and fp32 with D % 4 == 0 and
+    D > 32 (past ``_route``'s carve-out for the ×30-logit case)
+    ``tf32x3``; other bf16 ``mma_sync``, other fp32 ``fp32``."""
     import torch
-    if q.dtype != torch.bfloat16:
-        return "fp32"
-    return "wgmma" if q.shape[2] % 8 == 0 else "mma_sync"
+    d = q.shape[2]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        return "wgmma" if aligned and d % 8 == 0 else "mma_sync"
+    return "tf32x3" if aligned and d % 4 == 0 and d > 32 else "fp32"
+
+
+def _off16(x):
+    """x's values in a view one element past a 16-byte boundary."""
+    import torch
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def _flash_routed(label, q, k, v, kw, tol) -> tuple:
@@ -2156,62 +2208,132 @@ def _flash_routed(label, q, k, v, kw, tol) -> tuple:
     err, wide_err = _flash_held(label, q, k, v, kw, tol)
     routes = [r for r in FA.ROUTES if FA.LAUNCHES[f"flash_attention[{r}]"]
               > before[f"flash_attention[{r}]"]]
-    if routes != [_want_route(q)]:
+    if routes != [_want_route(q, k, v)]:
         raise AssertionError(f"flash_attention {label}: launched on routes "
-                             f"{routes}, not {_want_route(q)}")
+                             f"{routes}, not {_want_route(q, k, v)}")
     return err, wide_err, routes[0]
 
 
+#: each route of the main path and the other kernel of its dtype, which the
+#: A/B forces on the same inputs
+PARTNER = {"wgmma": "mma_sync", "tf32x3": "fp32"}
+
+
 def _flash_ab(label, q, k, v, kw, tol, long=False) -> dict:
-    """A bf16 shape of the main path on both bf16 kernels: the ``mma_sync``
-    kernel held as the ``wgmma`` one was (forced route), then both timed in
-    turns (wgmma, mma_sync, mma_sync, wgmma; the faster of each pair),
-    beside the plain version, SDPA, the bound and the exponential floor
-    (live pairs at ``EXP_RATE``).  ``long``: few repetitions (the 32k
-    shapes)."""
+    """A shape of the main path on both kernels of its dtype: the partner
+    route (``PARTNER``) held as the picked one was (forced route), then
+    both timed in turns (picked, partner, partner, picked; the faster of
+    each pair), beside the plain version, SDPA, each route's own bound and
+    the exponential floor (live pairs at ``EXP_RATE``).  ``long``: few
+    repetitions (the 32k shapes).  On ``tf32x3`` also its pre-pass's
+    scratch bytes (:func:`_tf32_prepass`)."""
     from repro_torch.kernels import flash_attn as FA
     mask = dict(causal=kw["causal"], window=kw["window"])
-    err_m, wide_m = _flash_held(f"{label} [mma_sync]", q, k, v, kw, tol,
-                                route="mma_sync")
-    runs = {"wgmma": lambda: FA.flash_attention(q, k, v, **kw),
-            "mma_sync": lambda: FA._flash_attention_route(
-                q, k, v, "mma_sync", **mask)}
+    picked = FA._route(q, k, v)
+    partner = PARTNER[picked]
+    err_p, wide_p = _flash_held(f"{label} [{partner}]", q, k, v, kw, tol,
+                                route=partner)
+    runs = {picked: lambda: FA.flash_attention(q, k, v, **kw),
+            partner: lambda: FA._flash_attention_route(q, k, v, partner,
+                                                       **mask)}
     if long:
         def timer(fn):
             return cuda_ms(fn, reps=3, warm=1)
     else:
         timer = median_ms
-    ms = {"wgmma": [], "mma_sync": []}
-    for name in ("wgmma", "mma_sync", "mma_sync", "wgmma"):
+    ms = {picked: [], partner: []}
+    for name in (picked, partner, partner, picked):
         ms[name].append(timer(runs[name]))
-    t_k, t_m = min(ms["wgmma"]), min(ms["mma_sync"])
+    t_k, t_p = min(ms[picked]), min(ms[partner])
     if long:
-        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
-                      reps=1, warm=0)
+        t_plain = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                          reps=1, warm=0)
         t_l = cuda_ms(_sdpa(q, k, v, kw["causal"], kw["window"]), reps=2,
                       warm=1)
     else:
-        t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
-                      reps=3)
+        t_plain = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                          reps=3)
         t_l = median_ms(_sdpa(q, k, v, kw["causal"], kw["window"]))
     b = _flash_bound(q, k, v, kw["causal"], kw["window"])
+    pb = _flash_bound(q, k, v, kw["causal"], kw["window"], partner)
     share = _share(f"flash_attention {label}", b["bound_ms"], t_k)
-    _share(f"flash_attention {label} [mma_sync]", b["bound_ms"], t_m)
-    return dict(ms=t_k, mma_sync_ms=t_m, plain_ms=t_p, library_ms=t_l,
-                share=share, mma_sync_share=b["bound_ms"] / t_m,
-                mma_sync_err=err_m, mma_sync_wide_err=wide_m,
-                wgmma_faster=t_k < t_m,
-                exp_floor_ms=b["pairs"] / EXP_RATE * 1e3, **b)
+    p_share = _share(f"flash_attention {label} [{partner}]", pb["bound_ms"],
+                     t_p)
+    r = dict(ms=t_k, partner=partner, partner_ms=t_p, plain_ms=t_plain,
+             library_ms=t_l, share=share, partner_share=p_share,
+             partner_bound_ms=pb["bound_ms"], partner_bound_by=pb["bound_by"],
+             partner_err=err_p, partner_wide_err=wide_p, faster=t_k < t_p,
+             exp_floor_ms=b["pairs"] / EXP_RATE * 1e3, **b)
+    if picked == "tf32x3":
+        r.update(_tf32_prepass(q, k, runs[picked]))
+    return r
 
 
-def _ab_text(r) -> str:
-    return (f"wgmma {r['ms']:.4f} ms ({r['share']:.1%} of the bound), "
-            f"mma_sync {r['mma_sync_ms']:.4f} ({r['mma_sync_share']:.1%}; "
-            f"held, max |Δ| {r['mma_sync_err']:.3e}), plain "
-            f"{r['plain_ms']:.3f}, SDPA {r['library_ms']:.4f}; bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, exp floor "
-            f"{r['exp_floor_ms']:.4f} ms ({r['pairs']} live pairs); wgmma "
-            f"{'faster' if r['wgmma_faster'] else 'NOT faster'}")
+def _tf32_prepass(q, k, run) -> dict:
+    """``tf32x3``'s pre-pass beside its bound, not in it: the bytes of its
+    scratch (split K and Vᵀ written once and read once), those bytes' time
+    at the HBM rate, and the route's device time split into the pre-pass
+    (``split_kv``) and the main kernel (``flash_fwd_tf32``) by the
+    profiler over 20 calls between two runs of 2,000 elementwise kernels
+    (late in the smoke a window loses kernels at its ends): a kernel's
+    mean over the launches the window kept, None if it kept none."""
+    import torch
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.roofline.model import H100
+    pad = torch.zeros(1, device=q.device)
+
+    def window():
+        for _ in range(2000):
+            pad.add_(1.0)
+        for _ in range(20):
+            run()
+        for _ in range(2000):
+            pad.add_(1.0)
+
+    _, _, ev = device_profile(window)
+    split = {}
+    for part, name in (("prepass_ms", "split_kv"),
+                       ("main_ms", "flash_fwd_tf32")):
+        n = sum(c for key, _, c in ev if name in key)
+        split[part] = sum(t for key, t, _ in ev if name in key) / n if n \
+            else None
+    moved = 2 * 4 * FA._tf32_tiles(q.shape[0], k.shape[1], q.shape[2])
+    return dict(split, prepass_bytes=moved,
+                prepass_bytes_ms=moved / H100.hbm_bw * 1e3)
+
+
+def _flash_alone(label, shape, q, k, v, kw, tol) -> dict:
+    """A composed shape's kernel alone: held on the route ``_route`` picks,
+    and A/B against the other kernel of its dtype (:func:`_flash_ab`);
+    logged.  Returns its row."""
+    err, wide_err, route = _flash_routed(label, q, k, v, kw, tol)
+    r = _flash_ab(label, q, k, v, kw, tol)
+    log(f"  flash {shape} ({label}) [{route}]: {_held_text(tol, wide_err)} "
+        f"(max |Δ| {err:.3e}); {_ab_text(route, r)}")
+    return dict(r, shape=shape, max_abs_err=err, wide_err=wide_err,
+                route=route)
+
+
+def _ab_text(route, r) -> str:
+    """One A/B row as text: each route against its own bound, and
+    ``tf32x3``'s pre-pass beside its bound."""
+    extra = ""
+    if "prepass_bytes" in r:
+        prof = ("not profiled: the window kept no launch"
+                if r["prepass_ms"] is None or r["main_ms"] is None else
+                f"profiled {r['prepass_ms']:.4f} + main {r['main_ms']:.4f}")
+        extra = (f"; pre-pass, not in the bound: {r['prepass_bytes']} B of "
+                 f"scratch ({r['prepass_bytes_ms']:.4f} ms at the HBM "
+                 f"rate), {prof}")
+    partner = r["partner"]
+    return (f"{route} {r['ms']:.4f} ms ({r['share']:.1%} of its bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}{extra}), {partner} "
+            f"{r['partner_ms']:.4f} ({r['partner_share']:.1%} of its bound "
+            f"{r['partner_bound_ms']:.4f} by {r['partner_bound_by']}; held, "
+            f"max |Δ| {r['partner_err']:.3e}), plain {r['plain_ms']:.3f}, "
+            f"SDPA {r['library_ms']:.4f}; exp floor {r['exp_floor_ms']:.4f} "
+            f"ms ({r['pairs']} live pairs); {route} "
+            f"{'faster' if r['faster'] else 'NOT faster'}")
 
 
 def phase_flash(dev):
@@ -2220,14 +2342,16 @@ def phase_flash(dev):
     on the route ``_route`` picks (logged from the launch counts); the bf16
     shapes of the main path also on the ``mma_sync`` kernel, and both
     timed beside the plain version, SDPA, the bound and the exponential
-    floor; the fp32 ones beside the plain version, SDPA and the bound.
-    Returns the head row, every timed row and max |Δ| by route."""
+    floor; the fp32 ones likewise on both fp32 kernels.  Returns the head
+    row, every timed row and max |Δ| by route."""
     import torch
     from repro_torch.kernels import flash_attn as FA
     errs, timed = {r: [] for r in FA.ROUTES}, {}
     for n, (label, bh, s, t, d, causal, window, dt, scale, tol) in \
             enumerate(FLASH_CASES):
         q, k, v = _qkv(bh, s, t, d, getattr(torch, dt), scale, dev, 70 + n)
+        if label.endswith("/offset"):
+            q, k, v = (_off16(x) for x in (q, k, v))
         # one block of each: the reference's contract for ragged S and T
         # (the kernels pick their own tiles)
         kw = dict(causal=causal, window=window, block_q=s, block_k=t)
@@ -2235,23 +2359,12 @@ def phase_flash(dev):
         errs[route].append(err)
         line = (f"  flash {label:26s} BH={bh} S={s} T={t} D={d} [{route}]: "
                 f"{_held_text(tol, wide_err)} (max |Δ| {err:.3e})")
-        if label.startswith("gemma/") and dt == "bfloat16":
+        if label.startswith("gemma/"):
             r = _flash_ab(label, q, k, v, kw, tol)
-            errs["mma_sync"].append(r["mma_sync_err"])
-            timed[label] = dict(r, wide_err=wide_err, route=route)
-            line += "; " + _ab_text(r)
-        elif label.startswith("gemma/"):
-            b = _flash_bound(q, k, v, causal, window)
-            t_k = median_ms(lambda: FA.flash_attention(q, k, v, **kw))
-            t_p = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
-                          reps=3)
-            t_l = median_ms(_sdpa(q, k, v, causal, window))
-            share = _share(f"flash_attention {label}", b["bound_ms"], t_k)
-            timed[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                max_abs_err=err, route=route, **b)
-            line += (f"; {t_k:.4f} ms (plain {t_p:.3f}, SDPA {t_l:.4f}); "
-                     f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
-                     f"({share:.1%}; {b['pairs']} live pairs)")
+            errs[r["partner"]].append(r["partner_err"])
+            timed[label] = dict(r, max_abs_err=err, wide_err=wide_err,
+                                route=route)
+            line += "; " + _ab_text(route, r)
         log(line)
         del q, k, v
         torch.cuda.empty_cache()
@@ -2263,11 +2376,11 @@ def phase_flash(dev):
         errs[route].append(err)
         torch.cuda.empty_cache()
         r = _flash_ab(label, q, k, v, kw, FLASH_LONG_TOL, long=True)
-        errs["mma_sync"].append(r["mma_sync_err"])
+        errs[r["partner"]].append(r["partner_err"])
         timed[label] = dict(r, wide_err=wide_err, route=route)
         log(f"  flash {label:26s} BH={bh} S={s} D=256 [{route}]: "
             f"{_held_text(FLASH_LONG_TOL, wide_err)} (max |Δ| "
-            f"{err:.3e}); {_ab_text(r)}")
+            f"{err:.3e}); {_ab_text(route, r)}")
         del q, k, v
         torch.cuda.empty_cache()
     err_by_route = {r: max(e) for r, e in errs.items()}
@@ -2279,32 +2392,32 @@ def phase_flash(dev):
 
 #: the flash kernels by route, each an entry of the ``kernels`` line
 FLASH_ROUTES = ("flash_attention[wgmma]", "flash_attention[mma_sync]",
-                "flash_attention[fp32]")
+                "flash_attention[tf32x3]", "flash_attention[fp32]")
 #: what the LM paths launch: the bf16 compositions take ``wgmma``, the fp32
-#: ones the fp32 kernel; no model's head dim takes ``mma_sync``
+#: ones ``tf32x3``; no model's head dim takes ``mma_sync`` or ``fp32``
 FLASH_PATH = ("flash_attention", "flash_attention[wgmma]",
-              "flash_attention[fp32]")
+              "flash_attention[tf32x3]")
 
 
 def flash_entries(head, timed, err_by_route) -> dict:
     """The ``kernels`` line's rows of the flash routes from phase 7: the
     bf16 kernels at gemma3-1b's global shape (``wgmma`` is the head row,
-    ``mma_sync`` its A/B partner on the same inputs), the fp32 kernel at the
-    same shape in fp32."""
-    same = {k: head[k] for k in ("plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "shape")}
-    fp32 = timed["gemma/global/fp32"]
-    return {
-        "flash_attention[wgmma]": dict(head,
-                                       max_abs_err=err_by_route["wgmma"]),
-        "flash_attention[mma_sync]": dict(
-            same, ms=head["mma_sync_ms"],
-            max_abs_err=err_by_route["mma_sync"]),
-        "flash_attention[fp32]": dict(
-            {k: fp32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")},
-            max_abs_err=err_by_route["fp32"],
-            shape="BH=8 S=T=4096 D=256 fp32 causal")}
+    ``mma_sync`` its A/B partner on the same inputs), the fp32 kernels at
+    the same shape in fp32 (``tf32x3``, and the CUDA-core ``fp32`` kernel
+    on the same inputs, each with its own bound)."""
+    fp32 = dict(timed["gemma/global/fp32"],
+                shape="BH=8 S=T=4096 D=256 fp32 causal")
+    rows = {}
+    for row in (head, fp32):
+        route, partner = row["route"], row["partner"]
+        rows[f"flash_attention[{route}]"] = dict(
+            row, max_abs_err=err_by_route[route])
+        rows[f"flash_attention[{partner}]"] = dict(
+            {k: row[k] for k in ("plain_ms", "library_ms", "shape")},
+            ms=row["partner_ms"], bound_ms=row["partner_bound_ms"],
+            bound_by=row["partner_bound_by"],
+            max_abs_err=err_by_route[partner])
+    return rows
 
 
 # -------------------------------------------------------------- phase 8
@@ -2975,32 +3088,28 @@ def _family_compose(arch, params, cfg, where, dev):
 
 
 def phase_families_flash(dev) -> dict:
-    """The kernel alone at the shapes phase 11 composed it into (bf16
-    causal, B = 2 × the heads, S = 4,096, D = 64): held against its plain
-    version as phase 7 holds it, on the ``wgmma`` route (and the
-    ``mma_sync`` kernel held too), both timed beside the plain version,
-    SDPA, the bound and the exponential floor.  Outside the path's launch
-    count."""
+    """The kernel alone at the shapes phase 11 composed it into (causal,
+    B = 2 × the heads, S = 4,096, D = 64), bf16 and fp32: held against its
+    plain version as phase 7 holds it, on the route ``_route`` picks
+    (``wgmma``, ``tf32x3``; the other kernel of the dtype held too), both
+    timed beside the plain version, SDPA, the bounds and the exponential
+    floor (:func:`_flash_alone`).  Outside the path's launch count; rows
+    by arch (bf16) and ``<arch>/fp32``."""
     import torch
     from repro_torch.configs import get_config
     rows = {}
     for arch, _ in FAMILY_COMPOSE:
         cfg = get_config(arch)
         bh = COMPOSE_BATCH * cfg.n_heads
-        q, k, v = _qkv(bh, COMPOSE_SEQ, COMPOSE_SEQ, cfg.hd, torch.bfloat16,
-                       1, dev, 95)
-        kw = dict(causal=True, window=None)
-        err, wide_err, route = _flash_routed(f"{arch} bf16", q, k, v, kw,
-                                             2e-5)
-        r = _flash_ab(f"{arch} bf16", q, k, v, kw, 2e-5)
-        rows[arch] = dict(r, shape=f"BH={bh} S=T={COMPOSE_SEQ} D={cfg.hd} "
-                          "bf16 causal", max_abs_err=err, wide_err=wide_err,
-                          route=route)
-        log(f"  flash {rows[arch]['shape']} ({arch}) [{route}]: "
-            f"{_held_text(2e-5, wide_err)} (max |Δ| {err:.3e}); "
-            f"{_ab_text(r)}")
-        del q, k, v
-        torch.cuda.empty_cache()
+        for dt, name in (("bf16", arch), ("fp32", f"{arch}/fp32")):
+            q, k, v = _qkv(bh, COMPOSE_SEQ, COMPOSE_SEQ, cfg.hd,
+                           torch.bfloat16 if dt == "bf16" else torch.float32,
+                           1, dev, 95)
+            rows[name] = _flash_alone(
+                f"{arch} {dt}", f"BH={bh} S=T={COMPOSE_SEQ} D={cfg.hd} {dt} "
+                "causal", q, k, v, dict(causal=True, window=None), 2e-5)
+            del q, k, v
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -3415,29 +3524,29 @@ def _whisper_compose(params, cfg, dev) -> dict:
 
 
 def phase_whisper_flash(dev) -> dict:
-    """The kernel alone at the shapes phase 12 composed it into (bf16,
-    non-causal, BH 64, D 64; S = T = 1,500 and S 4,096 × T 1,500): held
-    against its plain version as phase 7 holds it, on the ``wgmma`` route
-    (and the ``mma_sync`` kernel held too), both timed beside the plain
-    version, SDPA, the bound (S·T live pairs) and the exponential floor.
-    Outside the path's launch count."""
+    """The kernel alone at the shapes phase 12 composed it into
+    (non-causal, BH 64, D 64; S = T = 1,500 and S 4,096 × T 1,500), bf16
+    and fp32: held against its plain version as phase 7 holds it, on the
+    route ``_route`` picks (``wgmma``, ``tf32x3``; the other kernel of the
+    dtype held too), both timed beside the plain version, SDPA, the bounds
+    (S·T live pairs) and the exponential floor (:func:`_flash_alone`).
+    Outside the path's launch count; rows ``encoder``, ``cross`` (bf16)
+    and ``<label>/fp32``."""
     import torch
     bh = WHISPER_COMPOSE_BATCH * 8
     rows = {}
     for label, s in (("encoder", N_FRAMES), ("cross", WHISPER_COMPOSE_SEQ)):
-        q, k, v = _qkv(bh, s, N_FRAMES, 64, torch.bfloat16, 1, dev, 96)
-        kw = dict(causal=False, window=None, block_q=s, block_k=N_FRAMES)
-        err, wide_err, route = _flash_routed(f"{WHISPER} {label} bf16", q, k,
-                                             v, kw, 2e-5)
-        r = _flash_ab(f"{WHISPER} {label} bf16", q, k, v, kw, 2e-5)
-        rows[label] = dict(r, shape=f"BH={bh} S={s} T={N_FRAMES} D=64 bf16 "
-                           "non-causal", max_abs_err=err, wide_err=wide_err,
-                           route=route)
-        log(f"  flash {rows[label]['shape']} ({WHISPER} {label}) [{route}]: "
-            f"{_held_text(2e-5, wide_err)} (max |Δ| {err:.3e}); "
-            f"{_ab_text(r)}")
-        del q, k, v
-        torch.cuda.empty_cache()
+        for dt, name in (("bf16", label), ("fp32", f"{label}/fp32")):
+            q, k, v = _qkv(bh, s, N_FRAMES, 64,
+                           torch.bfloat16 if dt == "bf16" else torch.float32,
+                           1, dev, 96)
+            rows[name] = _flash_alone(
+                f"{WHISPER} {label} {dt}", f"BH={bh} S={s} T={N_FRAMES} D=64 "
+                f"{dt} non-causal", q, k, v,
+                dict(causal=False, window=None, block_q=s, block_k=N_FRAMES),
+                2e-5)
+            del q, k, v
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -4270,6 +4379,11 @@ def main() -> int:
             if launches[path][name] <= 0:
                 raise AssertionError(f"{name} never launched on the {path} "
                                      "path")
+    for path in ("lm", "families", "whisper"):
+        if launches[path]["flash_attention[fp32]"]:
+            raise AssertionError(f"the {path} path launched the CUDA-core "
+                                 "fp32 kernel: its fp32 compositions must "
+                                 "take tf32x3")
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"spmv_sell": "spmv_sell.cu", "spmv_ellpack": "spmv_ellpack.cu",
@@ -4278,13 +4392,15 @@ def main() -> int:
                "phase3": "fused_phase.cu",
                "flash_attention[wgmma]": "flash_attn_sm90.cu",
                "flash_attention[mma_sync]": "flash_attn.cu",
+               "flash_attention[tf32x3]": "flash_attn_tf32.cu",
                "flash_attention[fp32]": "flash_attn.cu"}
     sources = {name: csrc + src for name, src in sources.items()}
-    # the total of the three routes: the wrapper, whose ``_route`` picks the
-    # source of each launch (its row names both)
+    # the total of the four routes: the wrapper, whose ``_route`` picks the
+    # source of each launch (its row names them all)
     sources["flash_attention"] = "src/repro_torch/kernels/flash_attn.py"
     timed["flash_attention"]["sources"] = [csrc + "flash_attn_sm90.cu",
-                                           csrc + "flash_attn.cu"]
+                                           csrc + "flash_attn.cu",
+                                           csrc + "flash_attn_tf32.cu"]
     replaces = {"spmv_sell": "src/repro/kernels/spmv.py:179",
                 "spmv_ellpack": "src/repro/kernels/spmv.py:123",
                 "spmv_ell": "src/repro/kernels/spmv.py:68",
@@ -4313,7 +4429,9 @@ def main() -> int:
             **{k: t[k] for k in ("bound_stored_ms", "bound_streamed_ms",
                                  "streamed_slots", "class_ms", "ms_fp64",
                                  "bound_ms_fp64", "library_dtype", "shape",
-                                 "sizes", "sources", "mma_sync_ms")
+                                 "sizes", "sources", "partner",
+                                 "partner_ms", "prepass_ms", "main_ms",
+                                 "prepass_bytes")
                if k in t}})
     lm["flash_attention"] = flash_timed
     print(json.dumps({"sharded": sharded, "distributed": distributed}),

@@ -55,14 +55,21 @@
 // between its two products in every warp at once; flash_attn_sm90.cu's wgmma
 // and TMA remove both where the shape allows.
 //
-// flash_fwd_fp32 (fp32 inputs and output): fp32 inputs cannot go through the
-// bf16 tensor cores without rounding, so both products are fp32 FMAs on the
-// CUDA cores (fmaf: --fmad=false does not apply to explicit FMAs).  Bound:
-// operations, 4 D flops per live pair at 67 TFLOP/s.  One block of 256
-// threads per (bh, 64 query rows); Q (transposed), K (transposed), V and the
-// probabilities at fp32 in 214 KB of shared memory at D = 256; thread (ty,
-// tx) of a 16 x 16 grid holds 4 x 4 scores and 4 x ceil(D / 16)
-// accumulators; loads and products alternate behind barriers.
+// flash_fwd_fp32 (fp32 inputs and output): since csrc/flash_attn_tf32.cu
+// (three TF32 products on wgmma) this is the route only for fp32 inputs whose
+// head dim is at most 32 or not a multiple of 4, or whose base is off a
+// 16-byte boundary; _route picks it by shape, and a forced route (the smoke's
+// A/B) sends any fp32 input here.  Its q.k is fp32 FMAs over D one column
+// after another; the reference test's x30-logit case (D = 32, logits near
+// 1e3) holds its 1e-4 gate in that order, where sums over D in other orders
+// (the tensor cores', or these FMAs reversed) miss it on some inputs.  Both
+// products are fp32 FMAs on the CUDA cores (fmaf: --fmad=false does not apply
+// to explicit FMAs).  Bound: operations, 4 D flops per live pair at
+// 67 TFLOP/s.  One block of 256 threads per (bh, 64 query rows); Q
+// (transposed), K (transposed), V and the probabilities at fp32 in 214 KB of
+// shared memory at D = 256; thread (ty, tx) of a 16 x 16 grid holds 4 x 4
+// scores and 4 x ceil(D / 16) accumulators; loads and products alternate
+// behind barriers.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>

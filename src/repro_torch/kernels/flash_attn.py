@@ -4,7 +4,7 @@
 flash_attention`` (the Pallas kernel, body ``_kernel``): online-softmax
 attention on the head-major layout ``[BH, S, D]`` with a causal and/or
 sliding-window mask, whose scores and softmax statistics never leave the
-chip.  :func:`_route` picks one of three kernels by shape and dtype,
+chip.  :func:`_route` picks one of four kernels by shape and dtype,
 before the launch and never on a failure:
 
 * ``"wgmma"`` — bf16 whose head dim is a multiple of 8 and whose base
@@ -18,8 +18,18 @@ before the launch and never on a failure:
 * ``"mma_sync"`` — the other bf16 shapes (D = 20, a view that starts
   off a 16-byte boundary; ``csrc/flash_attn.cu``): ``mma.sync`` m16n8k16
   in 8 warps of 16 query rows, ``cp.async`` (or element-wise) loads.
-* ``"fp32"`` — fp32 inputs (``csrc/flash_attn.cu``): fp32 FMAs on the
-  CUDA cores, since the bf16 tensor cores would round them.
+* ``"tf32x3"`` — fp32 whose head dim is a multiple of 4 and whose base
+  pointers are 16-byte aligned, outside :data:`_LARGE_LOGIT_CARVE_OUT_D`
+  (``csrc/flash_attn_tf32.cu``): each fp32 product as three TF32 products
+  on ``wgmma`` (``x = hi + lo``, both rounded to tf32; ``lo·hi + hi·lo +
+  hi·hi``), after a pre-pass that writes K and Vᵀ, split, as the wgmma
+  operands' shared-memory images into scratch this wrapper allocates;
+  16-byte loads take only 16-byte rows and bases, hence the condition.
+  Every model's head dim takes this route.
+* ``"fp32"`` — the other fp32 inputs (D = 42, a view that starts off a
+  16-byte boundary, and the carve-out's D ≤ 32; ``csrc/flash_attn.cu``):
+  fp32 FMAs on the CUDA cores, q·k summed over D one column after
+  another.
 
 Both bf16 kernels take q·k of bf16 values in fp32 (exact) and carry p to
 16 bits in two bf16 passes (``p_hi = bf16(p)``, ``p_lo = bf16(p −
@@ -33,7 +43,8 @@ contract.  GQA stays outside: the caller repeats the kv heads.
 
 Parity with the plain version is held to a tolerance, not bit for bit: the
 kernels sum the softmax over K tiles in another order than a plain masked
-softmax, and the bf16 kernels carry p to 16 bits, not 24.
+softmax, the bf16 kernels carry p to 16 bits, not 24, and ``"tf32x3"``
+drops each product's ``lo·lo`` term (about 2⁻²² of it).
 
 A wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel of its route or raises.  :data:`LAUNCHES`
@@ -58,13 +69,23 @@ _NEG = -1e30
 MAX_HEAD_DIM = 256
 
 #: The kernels :func:`_route` picks from.
-ROUTES = ("wgmma", "mma_sync", "fp32")
+ROUTES = ("wgmma", "mma_sync", "tf32x3", "fp32")
 
 #: Kernel launches since the last :func:`reset_launches`: all, and by route.
 LAUNCHES: Dict[str, int] = {"flash_attention": 0,
                             **{f"flash_attention[{r}]": 0 for r in ROUTES}}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+#: fp32 head dims at or below this keep the CUDA-core kernel: a carve-out
+#: for the reference test's ×30-logit case (D = 32), not a property of the
+#: head dim.  At logits near 10³ that case's 1e-4 gate holds only for q·k
+#: summed in the plain version's order; ``"tf32x3"`` misses it on some
+#: inputs, and so do a fourth TF32 pass, lo kept at fp32 and fp32 FMAs
+#: summed in reverse (``tests/test_torch_flash_attn.py::
+#: test_tf32x3_large_logits_are_order_sensitive``).  A larger head dim
+#: with such logits takes ``"tf32x3"`` and misses that gate the same way.
+_LARGE_LOGIT_CARVE_OUT_D = 32
 
 
 def reset_launches() -> None:
@@ -74,15 +95,27 @@ def reset_launches() -> None:
 
 def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes these inputs, from their dtype, head dim and
-    base pointers alone: ``"wgmma"`` for bf16 with D a multiple of 8 and
-    16-byte aligned bases (TMA's row strides and bases), ``"mma_sync"``
-    for the other bf16 inputs, ``"fp32"`` for anything else."""
-    if not all(t.dtype == torch.bfloat16 for t in (q, k, v)):
-        return "fp32"
-    if q.shape[-1] % 8 == 0 and all(t.data_ptr() % 16 == 0
-                                    for t in (q, k, v)):
-        return "wgmma"
-    return "mma_sync"
+    base pointers alone: on 16-byte aligned bases, ``"wgmma"`` for bf16
+    with D a multiple of 8 (TMA's row strides) and ``"tf32x3"`` for fp32
+    with D a multiple of 4 (16-byte rows) outside the carve-out
+    :data:`_LARGE_LOGIT_CARVE_OUT_D`; else ``"mma_sync"`` for bf16 and
+    ``"fp32"`` for fp32."""
+    d = q.shape[-1]
+    bf16 = all(t.dtype == torch.bfloat16 for t in (q, k, v))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    if bf16:
+        return "wgmma" if aligned and d % 8 == 0 else "mma_sync"
+    carved_out = d <= _LARGE_LOGIT_CARVE_OUT_D
+    return "tf32x3" if aligned and d % 4 == 0 and not carved_out else "fp32"
+
+
+def _tf32_tiles(bh: int, t: int, d: int) -> int:
+    """fp32 elements of the ``"tf32x3"`` route's scratch: a 32 KB slot
+    image (hi and lo of 64 keys × 64 columns) for each 64-key tile, each
+    of K and Vᵀ, and each 64-column chunk of D rounded up to 64, 128 or
+    256 (``csrc/flash_attn_tf32.cu``'s ``tile_floats``)."""
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    return bh * -(-t // 64) * 2 * (dp // 64) * 8192
 
 
 def _check(q, k, v, block_q: int, block_k: int) -> None:
@@ -162,21 +195,30 @@ def _launch(route: str, q, k, v, out, causal, window) -> torch.Tensor:
     """One launch of ``route``'s kernel; ``out`` is q's dtype, or fp32 for
     bf16 inputs (the bf16 kernels before their output rounding)."""
     bh, s, d = q.shape
-    wide = out.dtype != q.dtype
-    if route == "wgmma":
-        lib, name, code = "flash_attn_sm90", "repro_flash_attention_sm90", \
-            int(wide)
+    t = k.shape[1]
+    if route == "tf32x3":
+        # the pre-pass's split K and V^T
+        n = _tf32_tiles(bh, t, d)
+        tiles = torch.empty(n, dtype=torch.float32, device=q.device)
+        lib, name = "flash_attn_tf32", "repro_flash_attention_tf32"
+        head, types = (tiles.data_ptr(), n), [P, LL]
     else:
         # the mma.sync and fp32 kernels' entry: 0 fp32, 1 bf16, 2 bf16 in
-        # and fp32 out
-        lib, name = "flash_attn", "repro_flash_attention"
-        code = 0 if route == "fp32" else 2 if wide else 1
-    fn = function(lib, name, [I, P, P, P, P, I, I, I, I, I, LL, P])
+        # and fp32 out; the wgmma kernel's: 1 fp32 out
+        wide = out.dtype != q.dtype
+        if route == "wgmma":
+            lib, name = "flash_attn_sm90", "repro_flash_attention_sm90"
+            code = int(wide)
+        else:
+            lib, name = "flash_attn", "repro_flash_attention"
+            code = 0 if route == "fp32" else 2 if wide else 1
+        head, types = (code,), [I]
+    fn = function(lib, name, types + [P, P, P, P, I, I, I, I, I, LL, P])
     # a negative width reads as "no window", taken in 64 bits (gemma3's
     # global layers pass 2**24)
     with torch.cuda.device(q.device):
-        err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 out.data_ptr(), bh, s, k.shape[1], d, int(causal),
+        err = fn(*head, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 out.data_ptr(), bh, s, t, d, int(causal),
                  -1 if window is None else int(window),
                  torch.cuda.current_stream().cuda_stream)
     raise_on_error(lib, "flash_attention", err)
@@ -201,12 +243,13 @@ def _flash_attention_route(q: torch.Tensor, k: torch.Tensor,
                            causal: bool = True, window=None,
                            wide: bool = False) -> torch.Tensor:
     """:func:`flash_attention` through a route forced by the caller
-    (``None``: :func:`_route`'s), to hold and time the two bf16 kernels on
-    the same inputs; ``wide``: bf16 in, fp32 out.  A route that cannot take
-    the inputs raises: ``"wgmma"`` only where :func:`_route` picks it,
-    ``"mma_sync"`` for any bf16 inputs, ``"fp32"`` for fp32 ones.  Not a
-    path of the model; on the CPU, the plain version (on widened inputs
-    when ``wide``), and nothing is launched."""
+    (``None``: :func:`_route`'s), to hold and time two kernels of one dtype
+    on the same inputs; ``wide``: bf16 in, fp32 out.  A route that cannot
+    take the inputs raises: ``"wgmma"`` and ``"tf32x3"`` only where
+    :func:`_route` picks them, ``"mma_sync"`` for any bf16 inputs,
+    ``"fp32"`` for any fp32 ones.  Not a path of the model; on the CPU, the
+    plain version (on widened inputs when ``wide``), and nothing is
+    launched."""
     if route is not None and route not in ROUTES:
         raise ValueError(f"flash_attention: route {route!r} not in {ROUTES}")
     if on_cpu("flash_attention", q):
@@ -218,8 +261,8 @@ def _flash_attention_route(q: torch.Tensor, k: torch.Tensor,
     _check_kernel(q, k, v, window, (torch.bfloat16,) if wide else _DTYPES)
     picked = _route(q, k, v)
     route = picked if route is None else route
-    if route != picked and (route == "fp32" or picked == "fp32"
-                            or route == "wgmma"):
+    if route != picked and (route, picked) not in (("mma_sync", "wgmma"),
+                                                   ("fp32", "tf32x3")):
         raise ValueError(f"flash_attention: route {route!r} does not take "
                          f"these inputs ({q.dtype}, D = {q.shape[2]}; "
                          f"_route picks {picked!r})")

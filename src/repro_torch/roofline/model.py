@@ -31,7 +31,7 @@ __all__ = ["H100", "Hardware", "RooflineTerms", "roofline_terms",
 _ALIASES = {"bf16": "bf16", "bfloat16": "bf16",
             "f32": "fp32", "fp32": "fp32", "float32": "fp32",
             "f64": "fp64", "fp64": "fp64", "float64": "fp64",
-            "fp64_tc": "fp64_tc"}
+            "fp64_tc": "fp64_tc", "tf32": "tf32"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,13 +57,15 @@ class Hardware:
 
 
 #: NVIDIA H100 SXM5 (NVIDIA's data sheet, dense, without sparsity): bf16
-#: on the tensor cores; fp32 off them (TF32 is off wherever the port is
-#: measured); fp64 off the tensor cores (the port's kernels use none) and,
-#: as ``fp64_tc``, on them; 18 NVLink 4 links of 25 GB/s each way.
+#: on the tensor cores; fp32 off them (PyTorch's own fp32 matmuls run with
+#: TF32 off wherever the port is measured); ``tf32`` on the tensor cores
+#: (the fp32 ``flash_attention`` kernel's three TF32 products); fp64 off the
+#: tensor cores (the port's kernels use none) and, as ``fp64_tc``, on them;
+#: 18 NVLink 4 links of 25 GB/s each way.
 H100 = Hardware(name="h100_sxm", peak_bf16_flops=989.4e12, hbm_bw=3.35e12,
                 ici_link_bw=25e9, ici_links=18, hbm_bytes=80e9,
                 peaks=(("fp32", 66.9e12), ("fp64", 33.5e12),
-                       ("fp64_tc", 66.9e12)))
+                       ("fp64_tc", 66.9e12), ("tf32", 494.7e12)))
 
 
 @dataclasses.dataclass(frozen=True)

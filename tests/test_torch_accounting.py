@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 import repro.core as ref_core
 import repro.sparse as ref_sparse

@@ -13,6 +13,7 @@ Inside the port the contract is bitwise: VM ≡ phases, row-ELL ≡ SELL,
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 import repro.sparse as ref_sparse
 from repro.core.batch import jpcg_solve_batched as ref_solve

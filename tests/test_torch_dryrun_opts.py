@@ -49,6 +49,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 from repro.configs import get_config as ref_get_config
 from repro.models import init_params as ref_init_params

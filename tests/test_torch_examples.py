@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 from repro.configs import get_config as ref_get_config
 from repro.core.cg import jpcg_solve as ref_jpcg_solve

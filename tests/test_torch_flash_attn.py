@@ -7,14 +7,16 @@ block pairs, windows 32 and 128, non-causal with S ≠ T, bf16 in and out,
 are made with numpy from a seed and handed to both packages.  The CUDA
 kernels themselves are held against the plain version on the card by
 ``chip_smoke.py`` (phases 7 and 8); :func:`_tc_model` models the bf16
-tensor-core kernel's arithmetic here, so its precision contract is held
-before the card runs it.
+tensor-core kernels' arithmetic here, and :func:`_tf32x3_model` the fp32
+one's (three TF32 products), so their precision contracts are held before
+the card runs them.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 from repro.kernels.flash_attn import flash_attention as ref_flash
 from repro.kernels.ref import mha_ref
@@ -247,36 +249,234 @@ def test_wide_check_entry_on_cpu():
     assert ops.launches()["flash_attention"] == 0
 
 
+# ------------------------------------------ the fp32 tensor-core kernel
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 (10 mantissa bits) to nearest, ties away from
+    zero, on the float32 bits: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor, wide_lo: bool = False) -> tuple:
+    """``hi = tf32(x)`` and ``lo = tf32(x − hi)`` (``wide_lo``: lo left at
+    fp32, the widest a lo can be)."""
+    hi = _tf32(x)
+    return hi, (x - hi) if wide_lo else _tf32(x - hi)
+
+
+def _tf32x3_model(q, k, v, *, causal, window=None, block_k=64, passes=3,
+                  wide_lo=False):
+    """The arithmetic of the fp32 ``wgmma`` kernel
+    (``csrc/flash_attn_tf32.cu``, 64-key tiles, D in 64-column chunks) in
+    plain torch: every operand split as ``hi = tf32(x)``, ``lo = tf32(x −
+    hi)``; S summed chunk by chunk of D as ``Q_lo·K_hiᵀ``, then
+    ``Q_hi·K_loᵀ``, then ``Q_hi·K_hiᵀ``; scaled by one fp32 constant
+    ``D ** -0.5 · log2(e)`` and masked to −1e30; an online softmax in base
+    2 over ``block_k``-key tiles, O rescaled, then ``P_lo·V_hi``,
+    ``P_hi·V_lo``, ``P_hi·V_hi`` added in that order, while ``l`` sums the
+    fp32 p.  The two variants the kernel does not take, for
+    :func:`test_tf32x3_large_logits_are_order_sensitive`: ``passes=4``
+    adds the ``lo·lo`` products first, ``wide_lo`` keeps every lo at fp32.
+    A test model, not a plain version: the order inside each product is
+    torch's."""
+    bh, s, d = q.shape
+    t = k.shape[1]
+    c = float(np.float32(d ** -0.5 * np.log2(np.e)))
+    (q_hi, q_lo), (k_hi, k_lo), (v_hi, v_lo) = (_split(x.float(), wide_lo)
+                                                for x in (q, k, v))
+    order = ((0, 1), (1, 0), (1, 1))       # (lo, hi), (hi, lo), (hi, hi)
+    if passes == 4:
+        order = ((0, 0),) + order
+    i = torch.arange(s)[:, None]
+    m = torch.full((bh, s), -1e30)
+    l = torch.zeros((bh, s))
+    o = torch.zeros((bh, s, d))
+    for k0 in range(0, t, block_k):
+        tile = slice(k0, k0 + block_k)
+        sc = torch.zeros((bh, s, min(block_k, t - k0)))
+        for c0 in range(0, d, 64):
+            cols = slice(c0, c0 + 64)
+            for a, b in order:
+                sc = sc + ((q_lo, q_hi)[a][..., cols]
+                           @ (k_lo, k_hi)[b][:, tile, cols].transpose(1, 2))
+        j = torch.arange(k0, k0 + sc.shape[2])[None, :]
+        dead = torch.zeros((s, sc.shape[2]), dtype=torch.bool)
+        if causal:
+            dead |= j > i
+        if window is not None:
+            dead |= j <= i - window
+        x = (sc * c).masked_fill(dead, -1e30)
+        m_new = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        p_hi, p_lo = _split(p, wide_lo)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None]
+        for a, b in order:
+            o = o + (p_lo, p_hi)[a] @ (v_lo, v_hi)[b][:, tile]
+        m = m_new
+    return o / l.clamp_min(1e-30)[..., None]
+
+
+def test_tf32_split():
+    """The model's rounding is ``cvt.rna``'s: ties away from zero at 2^-11
+    of 1, either sign; ``hi + lo`` is x within 2^-22 of |x|."""
+    one = 1.0 + 2.0 ** -11
+    x = torch.tensor([one, -one, 1.0 + 2.0 ** -12, 3.0, 0.0, -0.0, 2.0 ** -130])
+    got = _tf32(x)
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0,
+                         0.0, -0.0, 2.0 ** -130])
+    assert torch.equal(got, want) and got[5].view(torch.int32) < 0
+    r = torch.from_numpy(np.random.default_rng(2).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = _split(r)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(lo), lo)
+    assert float(((hi + lo - r).abs() / r.abs()).max()) <= 2.0 ** -22
+
+
+#: phase 7's fp32 cases at CPU size (bh, s, t, d, causal, window, logit
+#: scale, tolerance): the reference test's shapes at 2e-5 (causal blocks,
+#: windows 32 and 128, S ≠ T, head dims 16 and 120 with a window), a long T
+#: at 1e-4 (gemma's tolerance), and D = 256 causal and with a window.  The
+#: ×30 logits: :func:`test_tf32x3_large_logits_are_order_sensitive`.
+TF32_CASES = [(2, 256, 256, 64, True, None, 1, 2e-5),
+              (2, 512, 512, 64, True, None, 1, 2e-5),
+              (2, 256, 256, 32, True, 32, 1, 2e-5),
+              (2, 256, 256, 32, True, 128, 1, 2e-5),
+              (1, 128, 256, 64, False, None, 1, 2e-5),
+              (2, 128, 128, 16, True, 48, 1, 2e-5),
+              (2, 128, 128, 120, True, 48, 1, 2e-5),
+              (1, 64, 4096, 64, False, None, 1, 1e-4),
+              (1, 256, 256, 256, True, None, 1, 2e-5),
+              (1, 256, 256, 256, True, 100, 1, 1e-4)]
+
+
+@pytest.mark.parametrize(
+    "bh,s,t,d,causal,window,scale,tol", TF32_CASES,
+    ids=[f"bh{b}-s{s}-t{t}-d{d}-{'causal' if c else 'full'}-w{w}-x{x}"
+         for b, s, t, d, c, w, x, _ in TF32_CASES])
+def test_tf32x3_numerics_model(bh, s, t, d, causal, window, scale, tol):
+    """The fp32 kernel's arithmetic (:func:`_tf32x3_model`) meets the
+    card's fp32 gates: within each case's tolerance of the plain version
+    and of the JAX reference ``mha_ref``."""
+    q, k, v = _qkv(bh, s, t, d, seed=d + s + t)
+    (jq, jk, jv), (tq, tk, tv) = _both((scale * q, scale * k, v))
+    kw = dict(causal=causal, window=window)
+    got = _tf32x3_model(tq, tk, tv, **kw)
+    want = flash_attention_plain(tq, tk, tv, block_q=s, block_k=t, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(got.numpy(), _f32(mha_ref(jq, jk, jv, **kw)),
+                               atol=tol, rtol=tol)
+
+
+def _reversed_fp32(q, k, v):
+    """The plain version with q·k summed over D one column at a time, last
+    column first: fp32 in another summation order."""
+    d = q.shape[-1]
+    sc = torch.zeros((q.shape[0], q.shape[1], k.shape[1]))
+    for i in reversed(range(d)):
+        sc = sc + q[..., i, None] * k[..., i][:, None, :]
+    dead = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool).triu(1)
+    w = torch.softmax((sc * d ** -0.5).masked_fill(dead, -1e30), -1)
+    return w @ v
+
+
+#: the arithmetic :func:`test_tf32x3_large_logits_are_order_sensitive`
+#: tries: the kernel's three TF32 passes, a fourth (``lo·lo``), and four
+#: with every lo kept at fp32 (exact products in the kernel's order)
+SPLITS = {"3-pass": {}, "4-pass": dict(passes=4),
+          "4-pass-wide-lo": dict(passes=4, wide_lo=True)}
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_tf32x3_large_logits_are_order_sensitive(d):
+    """×30 logits (BH 1, S = T = 128, causal; D 32 is the reference test's
+    case), over 24 inputs: at logits near 10³ the 1e-4 gate against the
+    plain version holds only for q·k summed in the plain version's own
+    order.  fp32 summed in reverse misses it on some inputs, and each of
+    :data:`SPLITS` misses it too, as often and by as much: no fourth pass
+    or wider lo rescues it.  So ``_route`` carves the reference test's
+    case (D ≤ 32) out to the CUDA-core kernel, which holds it on the card;
+    a larger head dim with such logits (D 64 here) takes ``tf32x3`` and
+    misses the gate like reversed fp32."""
+    from repro_torch.kernels.flash_attn import _route
+    errs = {name: [] for name in (*SPLITS, "reversed fp32")}
+    for seed in range(24):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(1, 128, 128, d, seed))
+        q, k = 30 * q, 30 * k
+        want = flash_attention_plain(q, k, v, causal=True)
+        for name, kw in SPLITS.items():
+            got = _tf32x3_model(q, k, v, causal=True, **kw)
+            assert torch.isfinite(got).all()
+            errs[name].append(float((got - want).abs().max()))
+        errs["reversed fp32"].append(
+            float((_reversed_fp32(q, k, v) - want).abs().max()))
+    rev = errs.pop("reversed fp32")
+    assert max(rev) > 1e-4                      # the gate needs the order
+    for name, ours in errs.items():
+        assert max(ours) > 1e-4, name           # not rescued by the split
+        assert np.median(ours) <= 2 * np.median(rev), name
+        assert max(ours) <= 4 * max(rev), name
+    assert _route(q, k, v) == ("fp32" if d <= 32 else "tf32x3")
+
+
 # ------------------------------------------------------------ routes
-@pytest.mark.parametrize("d", [16, 20, 32, 64, 120, 128, 256])
+@pytest.mark.parametrize("d", [16, 20, 32, 36, 42, 64, 120, 128, 256])
 def test_route_by_shape(d):
     """``_route`` picks the kernel from dtype, head dim and base pointers
-    alone: bf16 with D % 8 == 0 on 16-byte aligned bases takes ``wgmma``,
-    other bf16 ``mma_sync``, and fp32 neither bf16 route."""
+    alone: on 16-byte aligned bases, bf16 with D % 8 == 0 takes ``wgmma``
+    and fp32 with D % 4 == 0 above 32 ``tf32x3``; other bf16 inputs take
+    ``mma_sync`` and other fp32 ones ``fp32``."""
     from repro_torch.kernels.flash_attn import _route
     bf = torch.zeros((2, 64, d), dtype=torch.bfloat16)
     assert _route(bf, bf, bf) == ("wgmma" if d % 8 == 0 else "mma_sync")
     f32 = torch.zeros((2, 64, d))
-    assert _route(f32, f32, f32) == "fp32"
+    assert _route(f32, f32, f32) == ("tf32x3" if d % 4 == 0 and d > 32
+                                     else "fp32")
     # a view whose base is one element (2 bytes) into its storage
     off = torch.zeros(2 * 64 * d + 1, dtype=torch.bfloat16)[1:].view(2, 64, d)
     assert off.is_contiguous() and off.data_ptr() % 16 == 2
     assert _route(off, bf, bf) == _route(bf, bf, off) == "mma_sync"
+    # one fp32 element (4 bytes) into its storage, in any of q, k, v
     f32_off = torch.zeros(2 * 64 * d + 1)[1:].view(2, 64, d)
+    assert f32_off.is_contiguous() and f32_off.data_ptr() % 16 == 4
     assert _route(f32_off, f32_off, f32_off) == "fp32"
+    assert _route(f32_off, f32, f32) == _route(f32, f32, f32_off) == "fp32"
 
 
-@pytest.mark.parametrize("route", ["wgmma", "mma_sync", None])
-@pytest.mark.parametrize("wide", [False, True])
+def test_tf32_scratch_size():
+    """The ``tf32x3`` route's scratch: a 32 KB slot image a 64-key tile, K
+    and Vᵀ, and 64-column chunk of D rounded up to 64, 128 or 256
+    (``csrc/flash_attn_tf32.cu``'s ``tile_floats``)."""
+    from repro_torch.kernels.flash_attn import _tf32_tiles
+    assert _tf32_tiles(8, 4096, 256) * 4 == 128 * 2 ** 20
+    assert _tf32_tiles(1, 1, 4) == _tf32_tiles(1, 64, 64) == 2 * 8192
+    assert _tf32_tiles(2, 65, 120) == 2 * 2 * 2 * 2 * 8192
+    assert _tf32_tiles(64, 1500, 64) == 64 * 24 * 2 * 8192
+
+
+#: (dtype, forced route, wide) of the forced-route entry: each route of
+#: each dtype and ``_route``'s own pick (None); wide (bf16 in, fp32 out)
+#: only for bf16
+FORCED = [(dt, route, wide) for dt, routes in
+          (("bfloat16", ("wgmma", "mma_sync", None)),
+           ("float32", ("tf32x3", "fp32", None)))
+          for route in routes for wide in (False, True)
+          if dt == "bfloat16" or not wide]
+
+
+@pytest.mark.parametrize("dtype,route,wide", FORCED,
+                         ids=[f"{d}-{r}-{'wide' if w else 'narrow'}"
+                              for d, r, w in FORCED])
 @pytest.mark.parametrize("s,t", [(128, 128), (200, 333)])
-def test_forced_route_entry_on_cpu(route, wide, s, t):
-    """The private entry that forces a route: on the CPU it is the plain
-    version (on the widened inputs when ``wide``), and launches nothing.
-    It takes S and T as one block each, as on the card, so ragged S and T
-    pass."""
+def test_forced_route_entry_on_cpu(dtype, route, wide, s, t):
+    """The private entry that forces a route, either dtype: on the CPU it
+    is the plain version (on the widened inputs when ``wide``), and
+    launches nothing; an unknown route raises.  It takes S and T as one
+    block each, as on the card, so ragged S and T pass."""
     from repro_torch.kernels.flash_attn import _flash_attention_route
     ops.reset_launches()
-    tq, tk, tv = (torch.from_numpy(a).bfloat16()
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
                   for a in _qkv(2, s, t, 64, seed=4))
     got = _flash_attention_route(tq, tk, tv, route, causal=True, window=48,
                                  wide=wide)
@@ -294,7 +494,7 @@ def test_route_counts_registered():
     """``LAUNCHES`` keeps its total and one count per route, all cleared by
     ``ops.reset_launches``."""
     from repro_torch.kernels import flash_attn as FA
-    assert FA.ROUTES == ("wgmma", "mma_sync", "fp32")
+    assert FA.ROUTES == ("wgmma", "mma_sync", "tf32x3", "fp32")
     assert set(FA.LAUNCHES) == {"flash_attention"} | {
         f"flash_attention[{r}]" for r in FA.ROUTES}
     FA.LAUNCHES["flash_attention[wgmma]"] = 3

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 from torch.func import functional_call
 
 from repro.configs import get_config as ref_get_config

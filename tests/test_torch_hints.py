@@ -8,6 +8,7 @@ import datetime
 
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 import torch.distributed as dist
 
 from repro_torch.distributed import hints

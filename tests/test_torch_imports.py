@@ -94,18 +94,21 @@ _FLASH_PROBE = """
 import json, sys, torch
 from repro_torch.kernels import _build, flash_attn as FA
 x = torch.zeros((2, 64, 64), dtype=torch.bfloat16)
+f, f18 = x.float(), x[..., :18].float().contiguous()
 routes = [FA._route(x, x, x), FA._route(x[..., :20].contiguous(), x, x),
-          FA._route(x.float(), x.float(), x.float())]
+          FA._route(f, f, f), FA._route(f18, f18, f18)]
 out = FA.flash_attention(x, x, x, block_q=64, block_k=64)
+out32 = FA.flash_attention(f, f, f, block_q=64, block_k=64)
 sources = sorted(p.stem for p in _build._CSRC.glob("flash_attn*.cu"))
-print(json.dumps([routes, len(_build._LIBS), out.shape == x.shape, sources]))
+print(json.dumps([routes, len(_build._LIBS),
+                  out.shape == out32.shape == x.shape, sources]))
 """
 
 
 def test_flash_wrapper_without_nvcc(tmp_path):
     """The flash wrapper imports, routes and takes its plain version on the
     CPU with no ``nvcc`` to be found (``PATH`` and ``CUDA_HOME`` point
-    nowhere), building nothing; both of its CUDA sources are in ``csrc``."""
+    nowhere), building nothing; its three CUDA sources are in ``csrc``."""
     env = dict(os.environ, PYTHONPATH=str(SRC), PATH=str(tmp_path),
                CUDA_HOME=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", _FLASH_PROBE], env=env,
@@ -113,9 +116,9 @@ def test_flash_wrapper_without_nvcc(tmp_path):
     assert out.returncode == 0, out.stderr
     routes, libs, shaped, sources = json.loads(
         out.stdout.strip().splitlines()[-1])
-    assert routes == ["wgmma", "mma_sync", "fp32"]
+    assert routes == ["wgmma", "mma_sync", "tf32x3", "fp32"]
     assert libs == 0 and shaped
-    assert sources == ["flash_attn", "flash_attn_sm90"]
+    assert sources == ["flash_attn", "flash_attn_sm90", "flash_attn_tf32"]
 
 
 @pytest.fixture

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 import repro.sparse as ref_sparse
 from repro.core import batch as ref_batch
@@ -408,7 +409,8 @@ def test_phase_ops_on_cpu_are_the_plain_versions():
                "phase2", "phase3", "flash_attention"}
     tier = {f"{k}[{s}]" for k in ("spmv_sell", "spmv_ellpack", "spmv_ell")
             for s in ("tpu_fp32", "tpu_v1", "tpu_v2", "tpu_v3")}
-    routes = {f"flash_attention[{r}]" for r in ("wgmma", "mma_sync", "fp32")}
+    routes = {f"flash_attention[{r}]"
+              for r in ("wgmma", "mma_sync", "tf32x3", "fp32")}
     assert set(ops.launches()) == kernels | tier | routes
     # the chunked sums agree with batch.tree_sum spelled by hand
     prod = torch.stack([rn * rn, rn * (rn / dg)])

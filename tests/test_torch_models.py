@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 import repro.models.attention as RA
 from repro.configs import cells as ref_cells

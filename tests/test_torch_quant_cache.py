@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 from repro.models import api as ref_api
 from repro.models.attention import init_attention as ref_init_attention

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 import repro.roofline as ref_roofline
 import repro.roofline.hlo_cost as ref_hlo_cost
@@ -299,6 +300,7 @@ def test_h100_constants():
     assert H100.peak_flops("f64") == H100.peak_flops("torch.float64") \
         == 33.5e12
     assert H100.peak_flops("fp64_tc") == 66.9e12
+    assert H100.peak_flops("tf32") == 494.7e12          # the tensor cores
     assert H100.peak_flops("bfloat16") == 989.4e12
     with pytest.raises(ValueError, match="int8"):
         H100.peak_flops("int8")

@@ -13,6 +13,7 @@ reference's on its 1-device mesh, at the solve tolerance.
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 import repro.sparse as ref_sparse
 from repro.core.batch import jpcg_solve_batched as ref_solve_batched

@@ -11,6 +11,7 @@ Inside the port: compaction and donation are bitwise neutral, and
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 import repro.sparse as ref_sparse
 from repro.serve.solver_engine import (SolverEngine as RefEngine,

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 from repro.configs import get_config as ref_get_config
 from repro.models import api as ref_api

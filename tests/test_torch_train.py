@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 from repro.models import init_params as ref_init_params
 from repro.models.config import ModelConfig as RefConfig

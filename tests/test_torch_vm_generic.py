@@ -18,6 +18,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+from _torch_pin import one_thread  # noqa: F401
 
 import repro.sparse as ref_sparse
 from repro.core.batch import jpcg_solve_batched as ref_solve
