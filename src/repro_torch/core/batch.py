@@ -38,7 +38,7 @@ from repro_torch.core.cg import CGResult
 from repro_torch.core.metrics import (advance_status, finalize_status,
                                       initial_status, is_breakdown,
                                       solver_metrics, status_name,
-                                      tick_health)
+                                      tick_health, traced_metrics)
 from repro_torch.core.phases import vsr_iteration
 from repro_torch.core.precision import (PrecisionScheme, get_scheme,
                                         host_values, values_tensor)
@@ -357,7 +357,11 @@ def _run_chunked(conds, ticks, states, *, steps: int):
     the unsharded ones."""
     steps = max(1, int(steps))
     states = list(states)
-    while shard_any(c(s) for c, s in zip(conds, states)):
+    m = traced_metrics()        # the engine's inside its step, else global
+    while True:
+        m.count("host_syncs")
+        if not shard_any(c(s) for c, s in zip(conds, states)):
+            break
         for _ in range(steps):
             states = [tick(s) for tick, s in zip(ticks, states)]
         if len(states) > 1:
@@ -672,12 +676,16 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
     shards = list(st) if mesh is not None else [st]
     per = G // len(shards)
 
+    m = solver_metrics()
+
     def lanes(t_of):
+        m.count("host_syncs", len(shards))
         return np.concatenate([t_of(s).cpu().numpy() for s in shards])
 
     its = lanes(lambda s: s.it)
     rrs = lanes(lambda s: fields(s)[1])
     tols = tol_vec.cpu().numpy()
+    m.count("host_syncs")
     statuses = lanes(lambda s: s.status)
     traces = lanes(lambda s: fields(s)[2]) if with_trace else None
 
@@ -685,7 +693,6 @@ def jpcg_solve_batched(problems: Sequence, bs: Optional[Sequence] = None,
     # committed iteration, and per discarded in-loop breakdown tick;
     # streamed bytes = events × the lane's at-rest nonzero stream.
     # Shard-padding lanes (g ≥ G_real) are invisible to the accounting.
-    m = solver_metrics()
     if layout == "ellpack":
         lane_stream_bytes = (_nbytes(mat[1]) + _nbytes(mat[2])) // G
     else:

@@ -25,6 +25,10 @@ callable (with explicit ``diag``/``n``).
     iteration (:mod:`repro_torch.kernels.ops`).  On CPU tensors each
     kernel's plain PyTorch version runs instead.
 
+With tracing on (:mod:`repro_torch.core.metrics`) a call is the root
+span ``solve`` of :func:`~repro_torch.core.metrics.solver_metrics`, over
+``solve.init`` and the loop's ``solve.iter`` / ``solve.rr_read``.
+
 ``device`` defaults to ``"cuda"`` (:func:`repro_torch.device.
 resolve_device`).  The batched solver
 (:func:`repro_torch.core.batch.jpcg_solve_batched`) and the serving
@@ -40,6 +44,7 @@ import torch
 
 from repro_torch.core import phases as _phases
 from repro_torch.core import pipelined as _pipe
+from repro_torch.core.metrics import solver_metrics
 from repro_torch.core.operators import as_operator
 from repro_torch.core.precision import get_scheme
 from repro_torch.device import resolve_device, to_device
@@ -103,41 +108,46 @@ def jpcg_solve(a, b=None, x0=None, *, tol: float = 1e-12,
                replace_every: int = _pipe.REPLACE_EVERY,
                block_rows: int = 256, col_tile: int = 512,
                device=None) -> CGResult:
-    scheme = get_scheme(scheme)
-    dev = resolve_device(device)
-    if backend == "pallas":
-        op = bell_operator_pallas(a, scheme, diag=diag,
-                                  block_rows=block_rows, col_tile=col_tile,
-                                  device=dev)
-    elif backend == "xla":
-        op = as_operator(a, scheme, diag=diag, n=n, block_rows=block_rows,
-                         col_tile=col_tile, device=dev)
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
-    if op.device != dev:
-        raise ValueError(f"the operator lives on {op.device}, the solve on "
-                         f"{dev}")
+    m = solver_metrics()
+    with m.span("solve"):
+        scheme = get_scheme(scheme)
+        dev = resolve_device(device)
+        if backend == "pallas":
+            op = bell_operator_pallas(a, scheme, diag=diag,
+                                      block_rows=block_rows,
+                                      col_tile=col_tile, device=dev)
+        elif backend == "xla":
+            op = as_operator(a, scheme, diag=diag, n=n,
+                             block_rows=block_rows, col_tile=col_tile,
+                             device=dev)
+        else:
+            raise ValueError(f"unknown backend {backend!r}")
+        if op.device != dev:
+            raise ValueError(f"the operator lives on {op.device}, the "
+                             f"solve on {dev}")
 
-    vd = scheme.vector_dtype
-    b = _vector(b, op.n, 1.0, vd, dev)
-    x0 = _vector(x0, op.n, 0.0, vd, dev)
-    d = op.diag.to(vd)
+        vd = scheme.vector_dtype
+        b = _vector(b, op.n, 1.0, vd, dev)
+        x0 = _vector(x0, op.n, 0.0, vd, dev)
+        d = op.diag.to(vd)
 
-    if method == "vsr":
-        st = _run_vsr(op, d, b, x0, tol=tol, maxiter=maxiter,
-                      scheme=scheme, with_trace=with_trace, backend=backend)
-    elif method == "pipelined":
-        st = _run_pipe(op, d, b, x0, tol=tol, maxiter=maxiter,
-                       scheme=scheme, with_trace=with_trace,
-                       replace_every=replace_every)
-    else:
-        raise ValueError(f"unknown method {method!r}")
+        if method == "vsr":
+            st = _run_vsr(op, d, b, x0, tol=tol, maxiter=maxiter,
+                          scheme=scheme, with_trace=with_trace,
+                          backend=backend)
+        elif method == "pipelined":
+            st = _run_pipe(op, d, b, x0, tol=tol, maxiter=maxiter,
+                           scheme=scheme, with_trace=with_trace,
+                           replace_every=replace_every)
+        else:
+            raise ValueError(f"unknown method {method!r}")
 
-    iters = int(st.i)
-    rr = float(st.rr)
-    trace = None
-    if with_trace:
-        trace = st.trace[:iters].cpu().numpy()
+        iters = int(st.i)
+        rr = float(st.rr)
+        m.count("host_syncs", 2 + with_trace)
+        trace = None
+        if with_trace:
+            trace = st.trace[:iters].cpu().numpy()
     return CGResult(x=st.x, iterations=iters, rr=rr,
                     converged=bool(rr <= tol), residual_trace=trace,
                     scheme=scheme.name, method=method)

@@ -18,7 +18,10 @@ The single-system loop :func:`jpcg_loop` runs the same iteration, or,
 given ``phase_ops`` (:func:`repro_torch.kernels.ops.make_phase_ops`), one
 dot kernel and one fused kernel per phase.  The reference's
 ``lax.while_loop`` becomes a host loop that reads ``rr`` once per
-iteration; every other scalar stays a 0-d device tensor.
+iteration; every other scalar stays a 0-d device tensor.  With tracing
+on (:mod:`repro_torch.core.metrics`) the loop records a ``solve.rr_read``
+span around each read and a ``solve.iter`` span around each iteration's
+enqueueing, and counts the reads in ``host_syncs``.
 
 Given ``reduce``, every dot is a local partial that ``reduce`` sums over
 the ranks sharing the vectors, two barriers an iteration (``p·ap``, then
@@ -31,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.metrics import solver_metrics
 from repro_torch.core.precision import PrecisionScheme
 
 __all__ = ["CGState", "jpcg_loop", "init_state", "vsr_iteration"]
@@ -94,14 +98,15 @@ def init_state(matvec, diag, b, x0, *, maxiter: int,
     The dots here are plain ``torch.dot``, as the reference's are
     ``jnp.dot``, completed by one ``reduce``."""
     vd = scheme.vector_dtype
-    b = b.to(vd)
-    x0 = x0.to(vd)
-    r = b - matvec(x0)
-    z = r / diag
-    p = z
-    rz, rr = reduce(_dot(r, z), _dot(r, r))
-    trace = torch.zeros(maxiter if with_trace else 0, dtype=vd,
-                        device=b.device)
+    with solver_metrics().span("solve.init"):
+        b = b.to(vd)
+        x0 = x0.to(vd)
+        r = b - matvec(x0)
+        z = r / diag
+        p = z
+        rz, rr = reduce(_dot(r, z), _dot(r, r))
+        trace = torch.zeros(maxiter if with_trace else 0, dtype=vd,
+                            device=b.device)
     return CGState(i=torch.zeros((), dtype=torch.int32, device=b.device),
                    x=x0, r=r, p=p, rz=rz, rr=rr, trace=trace)
 
@@ -146,13 +151,21 @@ def jpcg_loop(matvec, diag, state: CGState, *, tol: float, maxiter: int,
         return x_new, r_new, p_new, rz_new, rr_new
 
     body = body_plain if phase_ops is None else body_kernels
-    i = int(state.i)
+    m = solver_metrics()
+    i = i0 = int(state.i)
     x, r, p, rz, rr = state.x, state.r, state.p, state.rz, state.rr
     trace = state.trace.clone()
-    while i < maxiter and float(rr) > tol_v:
-        x, r, p, rz, rr = body(x, r, p, rz)
-        if trace.shape[0]:
-            trace[i] = rr
+    while i < maxiter:
+        with m.span("solve.rr_read"):
+            go = float(rr) > tol_v
+        if not go:
+            break
+        with m.span("solve.iter"):
+            x, r, p, rz, rr = body(x, r, p, rz)
+            if trace.shape[0]:
+                trace[i] = rr
         i += 1
+    # the reads of i and of every rr the predicate checked
+    m.count("host_syncs", 1 + (i - i0) + (i < maxiter))
     return CGState(i=torch.tensor(i, dtype=torch.int32, device=x.device),
                    x=x, r=r, p=p, rz=rz, rr=rr, trace=trace)

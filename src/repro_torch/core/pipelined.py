@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.metrics import solver_metrics
 from repro_torch.core.phases import local
 from repro_torch.core.precision import PrecisionScheme
 
@@ -90,7 +91,7 @@ def pipecg_loop(matvec, diag, b, state: PipeCGState, *, tol: float,
     b = b.to(vd)
     every = max(replace_every, 1)
     st = state._replace(trace=state.trace.clone())
-    i = int(st.i)
+    i = i0 = int(st.i)
     while i < maxiter and float(st.rr) > tol_v:
         # -- overlap region: this SpMV is independent of the dots of step i --
         m = st.w / diag                      # M⁻¹ w
@@ -123,5 +124,7 @@ def pipecg_loop(matvec, diag, b, state: PipeCGState, *, tol: float,
         st = PipeCGState(i=st.i, x=x, r=r, u=u, w=w, z=z, q=q, s=s, p=p,
                          gamma=gamma, gamma_prev=st.gamma, delta=delta,
                          alpha_prev=alpha, rr=rr, trace=st.trace)
+    # the reads of i and of every rr the predicate checked
+    solver_metrics().count("host_syncs", 1 + (i - i0) + (i < maxiter))
     return st._replace(i=torch.tensor(i, dtype=torch.int32,
                                       device=st.x.device))

@@ -161,6 +161,7 @@ class _Pool:
 
     def _lanes(self, t_of) -> np.ndarray:
         """A host copy of a per-lane state tensor over every slot."""
+        self.metrics.count("host_syncs", len(self.states))
         return np.concatenate([_host(t_of(st)) for st in self.states])
 
     def _lane_round(self, want: int) -> int:
@@ -179,6 +180,7 @@ class _Pool:
     def _tensor(self, a, d: int, dtype=None) -> torch.Tensor:
         """A host array on shard ``d``'s device (bf16 values through their
         bits, :func:`repro_torch.core.precision.values_tensor`)."""
+        self.metrics.count("h2d_bytes", np.asarray(a).nbytes)
         return values_tensor(a, self.devices[d], dtype)
 
     def _sell_mat(self, arrays, lane_widths, d: int) -> tuple:
@@ -241,6 +243,9 @@ class _Pool:
             stacked = stack_sell(
                 [c if c is not None else empty for c in self.csr_of_slot],
                 n_pad=n_pad, widths=self.sell_widths, scheme=self.scheme)
+            self._count_packed(stacked.cols, stacked.vals, stacked.iperm,
+                               nnz=sum(c.nnz for c in self.csr_of_slot
+                                       if c is not None))
             self.groups = stacked.groups
             self.lane_widths = stacked.lane_widths
             self.bucket = dims
@@ -322,12 +327,19 @@ class _Pool:
 
     # ---------------------------------------------------------- admission
     def admit(self, a, b, x0, tol, maxiter) -> int:
-        """Place one system into a free slot; returns the slot index."""
+        """Place one system into a free slot; returns the slot index.
+
+        With tracing on, its host packing, growth, host-to-device copies
+        and warm-up are the spans ``admit.pack``, ``admit.grow``,
+        ``admit.copy`` and ``admit.warmup`` (module docstring of
+        :mod:`repro_torch.core.metrics`)."""
+        span = self.metrics.span
         free = [s for s, r in enumerate(self.req_of_slot) if r is None]
         if not free and self.slots < self.capacity:
             # Compaction shrank the pool; grow lanes back for this admit.
             self.slots = min(self.capacity, self._lane_round(self.slots + 1))
-            self._alloc(self.bucket)
+            with span("admit.grow"):
+                self._alloc(self.bucket)
             free = [s for s, r in enumerate(self.req_of_slot) if r is None]
         if not free:
             raise RuntimeError(
@@ -335,23 +347,27 @@ class _Pool:
                 f"(scheme={self.scheme.name}, policy={self.policy})")
         s = free[0]
         cfg = self.cfg
-        a = _as_csr(a)
-        if self.layout is None:
-            self.layout = choose_layout(
-                [a], default="rowell" if cfg.backend == "xla" else "ellpack")
+        with span("admit.pack"):
+            a = _as_csr(a)
+            if self.layout is None:
+                self.layout = choose_layout(
+                    [a], default="rowell" if cfg.backend == "xla"
+                    else "ellpack")
         if self.layout == "sell":
-            n_pad = bucket_up(a.shape[0])
-            if self.bucket is not None:
-                n_pad = max(n_pad, self.bucket[0])
-            stored = [c for c in self.csr_of_slot if c is not None]
-            wnew = sell_slice_widths(stored + [a], n_pad=n_pad)
-            if self.sell_widths is not None:
-                # n_pad growth appends zero-nnz rows, which the global sort
-                # sends to the tail: old slice widths stay valid for the
-                # leading slices, so the merge is a zero-padded max.
-                old = self.sell_widths + (0,) * (len(wnew) -
-                                                 len(self.sell_widths))
-                wnew = tuple(max(o, w) for o, w in zip(old, wnew))
+            with span("admit.pack"):
+                n_pad = bucket_up(a.shape[0])
+                if self.bucket is not None:
+                    n_pad = max(n_pad, self.bucket[0])
+                stored = [c for c in self.csr_of_slot if c is not None]
+                wnew = sell_slice_widths(stored + [a], n_pad=n_pad)
+                if self.sell_widths is not None:
+                    # n_pad growth appends zero-nnz rows, which the global
+                    # sort sends to the tail: old slice widths stay valid
+                    # for the leading slices, so the merge is a zero-padded
+                    # max.
+                    old = self.sell_widths + (0,) * (len(wnew) -
+                                                     len(self.sell_widths))
+                    wnew = tuple(max(o, w) for o, w in zip(old, wnew))
             self.csr_of_slot[s] = a
             if (self.bucket is None or n_pad != self.bucket[0]
                     or wnew != self.sell_widths):
@@ -359,93 +375,115 @@ class _Pool:
                 groups = _sell_groups(wnew, n_pad=n_pad,
                                       slice_rows=max(1, min(SELL_SLICE_ROWS,
                                                             n_pad)))
-                self._alloc((n_pad,) + tuple(
-                    d for rw in groups for d in rw))
+                with span("admit.grow"):
+                    self._alloc((n_pad,) + tuple(
+                        d for rw in groups for d in rw))
             else:
-                st1 = stack_sell([a], n_pad=n_pad, widths=self.sell_widths,
-                                 scheme=self.scheme)
-                d, j = self._loc(s)
-                arrays = self.mats[d][:3]
-                for arr, lane in zip(arrays, (st1.cols[0], st1.vals[0],
-                                              st1.iperm[0])):
-                    arr[j] = self._tensor(lane, d, arr.dtype)
-                self.lane_widths[s] = st1.lane_widths[0]
-                self.mats[d] = self._sell_mat(arrays, self._shard_widths(d),
-                                              d)
+                with span("admit.pack"):
+                    st1 = stack_sell([a], n_pad=n_pad,
+                                     widths=self.sell_widths,
+                                     scheme=self.scheme)
+                self._count_packed(st1.cols, st1.vals, st1.iperm,
+                                   nnz=a.nnz)
+                with span("admit.copy"):
+                    d, j = self._loc(s)
+                    arrays = self.mats[d][:3]
+                    for arr, lane in zip(arrays, (st1.cols[0], st1.vals[0],
+                                                  st1.iperm[0])):
+                        arr[j] = self._tensor(lane, d, arr.dtype)
+                    self.lane_widths[s] = st1.lane_widths[0]
+                    self.mats[d] = self._sell_mat(arrays,
+                                                  self._shard_widths(d), d)
         else:
-            if cfg.backend == "xla":
-                cols_l, vals_l = csr_rowell(a)
-                dims = (bucket_up(a.shape[0]), bucket_up(cols_l.shape[1]))
-            else:
-                m = csr_to_ellpack(a, block_rows=cfg.block_rows,
-                                   col_tile=cfg.col_tile)
-                dims = tuple(bucket_up(d) for d in (
-                    m.n_row_blocks, m.n_slabs, m.ell, m.n_col_tiles))
+            with span("admit.pack"):
+                if cfg.backend == "xla":
+                    cols_l, vals_l = csr_rowell(a)
+                    dims = (bucket_up(a.shape[0]),
+                            bucket_up(cols_l.shape[1]))
+                else:
+                    m = csr_to_ellpack(a, block_rows=cfg.block_rows,
+                                       col_tile=cfg.col_tile)
+                    dims = tuple(bucket_up(d) for d in (
+                        m.n_row_blocks, m.n_slabs, m.ell, m.n_col_tiles))
             if self.bucket is None or any(d > o for d, o in
                                           zip(dims, self.bucket)):
                 grown = dims if self.bucket is None else tuple(
                     max(d, o) for d, o in zip(dims, self.bucket))
-                self._alloc(grown)
-            if cfg.backend == "xla":
-                # slot-major lane slab over the whole bucket: self-gather
-                # template, then the real entries transposed in
-                N, W = self.bucket
-                n, w_a = cols_l.shape
-                lane_cols = np.broadcast_to(np.arange(N, dtype=index_dtype(N)),
-                                            (W, N)).copy()
-                lane_cols[:w_a, :n] = cols_l.T
-                lane_vals = np.zeros((W, N), self.scheme.host_matrix_dtype)
-                lane_vals[:w_a, :n] = host_values(
-                    vals_l.T, self.scheme.host_matrix_dtype)
-                lanes = (lane_cols, lane_vals)
-            else:
-                B, T, L, _ = self.bucket
-                m = pad_ellpack(m, n_row_blocks=B, n_slabs=T, ell=L)
-                lanes = (m.tile_cols, m.vals, m.local_cols)
+                with span("admit.grow"):
+                    self._alloc(grown)
+            with span("admit.pack"):
+                if cfg.backend == "xla":
+                    # slot-major lane slab over the whole bucket: self-
+                    # gather template, then the real entries transposed in
+                    N, W = self.bucket
+                    n, w_a = cols_l.shape
+                    lane_cols = np.broadcast_to(
+                        np.arange(N, dtype=index_dtype(N)), (W, N)).copy()
+                    lane_cols[:w_a, :n] = cols_l.T
+                    lane_vals = np.zeros((W, N),
+                                         self.scheme.host_matrix_dtype)
+                    lane_vals[:w_a, :n] = host_values(
+                        vals_l.T, self.scheme.host_matrix_dtype)
+                    lanes = (lane_cols, lane_vals)
+                else:
+                    B, T, L, _ = self.bucket
+                    m = pad_ellpack(m, n_row_blocks=B, n_slabs=T, ell=L)
+                    lanes = (m.tile_cols, m.vals, m.local_cols)
+            self._count_packed(*lanes, nnz=a.nnz)
             self.csr_of_slot[s] = a
-            d, j = self._loc(s)
-            for arr, lane in zip(self.mats[d], lanes):
-                arr[j] = self._tensor(lane, d, arr.dtype)
+            with span("admit.copy"):
+                d, j = self._loc(s)
+                for arr, lane in zip(self.mats[d], lanes):
+                    arr[j] = self._tensor(lane, d, arr.dtype)
 
         vd = self.scheme.vector_dtype
         d, j = self._loc(s)
         n = a.shape[0]
         st = self.states[d]
         n_pad = st.mem.shape[-1]
-        dg = np.ones(n_pad)
-        dg[:n] = a.diagonal()
-        bb = np.zeros(n_pad)
-        bb[:n] = np.ones(n) if b is None else np.asarray(b)
-        xx = np.zeros(n_pad)
-        if x0 is not None:
-            xx[:n] = np.asarray(x0)
-        diag_l = self._tensor(dg[None], d, vd)
-        b_l = self._tensor(bb[None], d, vd)
-        x0_l = self._tensor(xx[None], d, vd)
+        with span("admit.pack"):
+            dg = np.ones(n_pad)
+            dg[:n] = a.diagonal()
+            bb = np.zeros(n_pad)
+            bb[:n] = np.ones(n) if b is None else np.asarray(b)
+            xx = np.zeros(n_pad)
+            if x0 is not None:
+                xx[:n] = np.asarray(x0)
+        self._count_packed(dg, bb, xx)
+        with span("admit.copy"):
+            diag_l = self._tensor(dg[None], d, vd)
+            b_l = self._tensor(bb[None], d, vd)
+            x0_l = self._tensor(xx[None], d, vd)
 
-        # JPCG warm-up for this lane alone, through the pool's own SpMV.
-        r = b_l - self._matvec_of()(self._lane_mat(s))(x0_l)
-        z = r / diag_l
-        rz, rr = _row_dot(r, z)[0], _row_dot(r, r)[0]
+        with span("admit.warmup"):
+            # JPCG warm-up for this lane alone, through the pool's own SpMV.
+            r = b_l - self._matvec_of()(self._lane_mat(s))(x0_l)
+            z = r / diag_l
+            rz, rr = _row_dot(r, z)[0], _row_dot(r, r)[0]
 
-        req_tol = torch.tensor(cfg.tol if tol is None else tol, dtype=vd,
-                               device=self.devices[d])
-        st.it[j] = 0
-        st.mem[:, j] = torch.cat([x0_l, r, z, torch.zeros_like(r), diag_l,
-                                  b_l])
-        st.queues[:, j] = 0.0
-        st.sregs[:, j] = 0.0
-        st.sregs[SREG["rz"], j] = rz
-        st.sregs[SREG["rr"], j] = rr
-        st.active[j] = rr > req_tol
-        st.status[j] = initial_status(rr, req_tol, detect=cfg.detect)
-        self.tols[d][j] = req_tol
-        self.maxiters[d][j] = cfg.maxiter if maxiter is None else maxiter
+            req_tol = torch.tensor(cfg.tol if tol is None else tol,
+                                   dtype=vd, device=self.devices[d])
+            st.it[j] = 0
+            st.mem[:, j] = torch.cat([x0_l, r, z, torch.zeros_like(r),
+                                      diag_l, b_l])
+            st.queues[:, j] = 0.0
+            st.sregs[:, j] = 0.0
+            st.sregs[SREG["rz"], j] = rz
+            st.sregs[SREG["rr"], j] = rr
+            st.active[j] = rr > req_tol
+            st.status[j] = initial_status(rr, req_tol, detect=cfg.detect)
+            self.tols[d][j] = req_tol
+            self.maxiters[d][j] = cfg.maxiter if maxiter is None else maxiter
         self.n_of_slot[s] = n
         self.metrics.bump("admits")
         self.metrics.bump("spmv_calls")          # the warm-up r0 = b - A·x0
         self.metrics.bump("bytes_streamed_est", self._lane_stream_bytes())
         return s
+
+    def _count_packed(self, *arrays, nnz: int = 0) -> None:
+        """Count host packing: ``nnz`` nonzeros into ``arrays``."""
+        self.metrics.count("packed_nnz", nnz)
+        self.metrics.count("packed_bytes", sum(a.nbytes for a in arrays))
 
     def _lane_stream_bytes(self) -> int:
         """At-rest nonzero stream per lane per SpMV: packed values +
@@ -457,8 +495,10 @@ class _Pool:
     # -------------------------------------------------------------- tick
     @property
     def any_active(self) -> bool:
-        return bool(self.states) and shard_any(st.active
-                                                 for st in self.states)
+        if not self.states:
+            return False
+        self.metrics.count("host_syncs")
+        return shard_any(st.active for st in self.states)
 
     def active_lanes(self) -> np.ndarray:
         """Host copy of every slot's ``active`` flag."""
@@ -475,27 +515,32 @@ class _Pool:
             n_col_tiles=self.bucket[-1] if self._ellpack else None,
             steps_per_sync=cfg.steps_per_sync, donate=cfg.donate,
             detect=cfg.detect, mesh=self.mesh)
+        m = self.metrics
         # Host copies of the pre-step counters: a donating step updates
         # the state tensors in place.
-        it0 = self._lanes(lambda st: st.it)
-        st0 = self._lanes(lambda st: st.status)
+        with m.span("step.account"):
+            it0 = self._lanes(lambda st: st.it)
+            st0 = self._lanes(lambda st: st.status)
         args = (self.mat, self.state, self._view(self.tols),
                 self._view(self.maxiters))
-        if cfg.specialize:
-            stepper = make_vm_stepper(program=self.program_np, **stepper_kw)
-            out = stepper(*args)
-        else:
-            stepper = make_vm_stepper(**stepper_kw)
-            out = stepper(self.program_np, *args)
+        with m.span("step.vm"):
+            if cfg.specialize:
+                stepper = make_vm_stepper(program=self.program_np,
+                                          **stepper_kw)
+                out = stepper(*args)
+            else:
+                stepper = make_vm_stepper(**stepper_kw)
+                out = stepper(self.program_np, *args)
         self.states = list(out) if self.mesh is not None else [out]
         # Accounting: committed iterations plus one discarded program
         # execution per lane that broke down during this step (its tick
         # ran the SpMV before the writes were thrown away).  Frozen
         # lanes' dead compute is deliberately not counted.
-        it_delta = int((self._lanes(lambda st: st.it) - it0).sum())
-        broke = int((is_breakdown_codes(self._lanes(lambda st: st.status))
-                     & ~is_breakdown_codes(st0)).sum())
-        m = self.metrics
+        with m.span("step.account"):
+            it_delta = int((self._lanes(lambda st: st.it) - it0).sum())
+            broke = int((is_breakdown_codes(
+                self._lanes(lambda st: st.status))
+                & ~is_breakdown_codes(st0)).sum())
         m.bump("chunks")
         m.bump("iterations", it_delta)
         m.bump("spmv_calls", it_delta + broke)
@@ -511,6 +556,10 @@ class _Pool:
         statuses = self._lanes(lambda st: st.status)
         rrs = self._lanes(lambda st: st.sregs[SREG["rr"]])
         tols = np.concatenate([_host(t) for t in self.tols])
+        count = self.metrics.count
+        count("host_syncs", len(self.tols))
+        count("d2h_bytes", sum(a.nbytes for a in (active, its, statuses, rrs,
+                                                  tols)))
         for s, rid in enumerate(self.req_of_slot):
             if rid is None or active[s]:
                 continue
@@ -518,6 +567,8 @@ class _Pool:
             d, j = self._loc(s)
             # A host copy: the next donating step rewrites mem in place.
             x = self.states[d].mem[BUF["x"], j, :n].to("cpu", copy=True)
+            count("host_syncs")
+            count("d2h_bytes", x.numel() * x.element_size())
             # An inactive lane still RUNNING is the detection-off
             # non-finite-at-admit corner; it wears the budget face.
             code = int(statuses[s])
@@ -636,6 +687,17 @@ class SolverEngine:
         request exits; ``pools`` reports per-(scheme, policy) occupancy
         and lane ``shards``; ``executable_cache`` is
         :func:`repro_torch.core.batch.batch_cache_info`.
+
+        While tracing is on (a ``torch.profiler`` session in the process,
+        or :func:`repro_torch.core.metrics.enable_tracing`), and only
+        then, the snapshot also carries each span's ``"<name>.ns"`` and
+        ``"<name>.n"`` — ``submit`` (root, its id the request id) over
+        ``submit.harvest``, ``admit.pack``, ``admit.grow``,
+        ``admit.copy``, ``admit.warmup``; ``step`` (root) over
+        ``step.account``, ``step.vm``, ``step.harvest``, ``step.compact``
+        — and the traced counters ``host_syncs``, ``packed_nnz``,
+        ``packed_bytes``, ``h2d_bytes``, ``d2h_bytes`` and
+        ``spans_dropped`` (:mod:`repro_torch.core.metrics`).
         """
         pools = {
             f"{sch}/{pol}": {
@@ -684,27 +746,36 @@ class SolverEngine:
         ``scheme`` route it to the matching (scheme, policy) pool.  With
         ``cfg.escalate_fp64`` the operands are retained so a breakdown
         exit can be retried once in the ``cfg.escalate_scheme`` pool."""
-        self._harvest()        # a lane done since the last tick frees its slot
-        pool = self._pool(scheme, policy)
-        s = pool.admit(a, b, x0, tol, maxiter)
         rid = self._next_id
-        self._next_id += 1
-        pool.req_of_slot[s] = rid
-        if self.cfg.escalate_fp64:
-            self._meta[rid] = (a, b, x0, tol, maxiter,
-                               self.cfg.policy if policy is None else policy)
+        m = self._metrics
+        with m.span("submit", rid=rid):
+            # a lane done since the last tick frees its slot
+            with m.span("submit.harvest"):
+                self._harvest()
+            pool = self._pool(scheme, policy)
+            s = pool.admit(a, b, x0, tol, maxiter)
+            self._next_id += 1
+            pool.req_of_slot[s] = rid
+            if self.cfg.escalate_fp64:
+                self._meta[rid] = (a, b, x0, tol, maxiter,
+                                   self.cfg.policy if policy is None
+                                   else policy)
         return rid
 
     def step(self) -> Dict[int, CGResult]:
         """One chunked tick (≤ ``chunk_iters`` iterations for every live
         lane in every pool); harvests and frees finished slots, returning
         ``{request_id: CGResult}``."""
-        for pool in self._pools.values():
-            if pool.any_active:
-                pool.step()
-        done = self._harvest()
-        for pool in self._pools.values():
-            pool.maybe_compact()
+        m = self._metrics
+        with m.span("step"):
+            for pool in self._pools.values():
+                if pool.any_active:
+                    pool.step()
+            with m.span("step.harvest"):
+                done = self._harvest()
+            with m.span("step.compact"):
+                for pool in self._pools.values():
+                    pool.maybe_compact()
         return done
 
     def _harvest(self) -> Dict[int, CGResult]:
