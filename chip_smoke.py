@@ -76,6 +76,15 @@
    PyTorch call computes the same function, that call (``torch.dot``; a
    CSR ``torch.sparse.mm`` for the SpMV, fp64 or at the tier's value
    dtype).
+5b. The CSR-to-ELLPACK packer (``kernels/pack``, both passes) against its
+   plain version, bit for bit: Poisson, scrambled (unsorted, duplicated
+   columns), emptied-row and zero-nonzero matrices at block_rows/col_tile
+   32/64 and 256/512, every faithful and tier scheme, at the matrix's own
+   dims and a bucket past them, into lanes filled with stale values; then
+   ``poisson_2d(1000)`` (ecology2's shape) at mixed_v3 into the engine's
+   bucket and at its own dims, repeated bit for bit, both passes timed in
+   the profiler with a cold L2 beside their bound (the CSR read once and
+   the lane written once at 3.35 TB/s) and the plain version on the card.
 6. The single-system solve (``jpcg_solve``) at full size on
    ``poisson_2d(1000)`` (n = 1,000,000, 4,996,000 nonzeros; b = 1,
    x0 = 0, tol 1e-12, maxiter 20,000): ``vsr`` × ``pallas`` at mixed_v3
@@ -315,6 +324,7 @@ and the examples'.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -440,7 +450,8 @@ def phase_build(libs: dict) -> None:
     faults = []
     sell = 0
     for source in ("spmv_sell", "spmv_ellpack", "dot", "fused_phase",
-                   "flash_attn", "flash_attn_sm90", "flash_attn_tf32"):
+                   "flash_attn", "flash_attn_sm90", "flash_attn_tf32",
+                   "ellpack_pack"):
         for kern, r in ptxas_report(source).items():
             sell += kern.startswith("spmv_sell_kernel<")
             log(f"  {source}: {kern}: {r.get('registers')} registers, "
@@ -1546,6 +1557,143 @@ def phase_single_kernels(a, dev):
     return timed
 
 
+# ------------------------------------------------------------- phase 5b
+def _pack_cases():
+    """Small matrices for the packer: ragged blocks, unsorted columns with
+    duplicates, emptied rows, no nonzeros."""
+    import numpy as np
+    from repro_torch.sparse import CSRMatrix, csr_from_coo, poisson_2d
+    rng = np.random.default_rng(5)
+    indptr, cols = [0], []
+    for i in range(600):
+        k = int(rng.integers(0, 10))
+        row = list(rng.integers(0, 600, size=k))
+        cols += row + ([row[0], i, i] if k else [])
+        indptr.append(len(cols))
+    scrambled = CSRMatrix(np.array(indptr, np.int64), np.array(cols, np.int32),
+                          rng.standard_normal(len(cols)), (600, 600))
+    p = poisson_2d(30)
+    keep = np.repeat(np.arange(p.n_rows) % 3 != 1, p.row_nnz())
+    rows = np.repeat(np.arange(p.n_rows), p.row_nnz())[keep]
+    emptied = csr_from_coo(rows, p.indices[keep], p.data[keep], p.shape)
+    empty = CSRMatrix(np.zeros(301, np.int64), np.zeros(0, np.int32),
+                      np.zeros(0), (300, 300))
+    return {"poisson": poisson_2d(37), "scrambled": scrambled,
+            "emptied": emptied, "zero_nnz": empty}
+
+
+def _pack_both(a, dev, scheme, dims_of, **kw):
+    """The packer on the card and its plain version on the CPU, the card's
+    into a lane filled with stale values; ``(card, plain, geometry,
+    dims)``."""
+    import torch
+    from repro_torch.kernels import pack
+    plain_csr = pack.CSRTensors.from_csr(a, "cpu")
+    geometry = pack.ellpack_geometry_plain(plain_csr, **kw)
+    dims = dims_of(geometry)
+    want = pack.ellpack_pack_plain(
+        plain_csr, geometry, dims, matrix_dtype=scheme.matrix_dtype,
+        vector_dtype=scheme.vector_dtype, **kw)
+    csr = pack.CSRTensors.from_csr(a, dev)
+    got_geometry = pack.ellpack_geometry(csr, **kw)
+    if got_geometry != geometry:
+        raise AssertionError(f"ellpack_geometry {got_geometry} on the card, "
+                             f"{geometry} in the plain version")
+    out = tuple(torch.full_like(t, 7, device=dev) for t in want)
+    got = pack.ellpack_pack(csr, geometry, dims,
+                            matrix_dtype=scheme.matrix_dtype,
+                            vector_dtype=scheme.vector_dtype, out=out, **kw)
+    return got, tuple(t.to(dev) for t in want), geometry, dims
+
+
+def phase_pack(single, dev):
+    """``ellpack_geometry`` and ``ellpack_pack`` against their plain
+    versions, bit for bit, and timed at ecology2's shape."""
+    import torch
+    from repro_torch.core.precision import get_scheme
+    from repro_torch.kernels import pack
+    from repro_torch.sparse import bucket_up
+    errs = {}
+    for name, a in _pack_cases().items():
+        for (R, C), scheme, bucketed in itertools.product(
+                ((32, 64), (256, 512)), SCHEMES + TIER, (False, True)):
+            grow = ((lambda g: tuple(bucket_up(d + 1) for d in g[:3]))
+                    if bucketed else (lambda g: g[:3]))
+            got, want, _, dims = _pack_both(a, dev, get_scheme(scheme), grow,
+                                            block_rows=R, col_tile=C)
+            for g, w in zip(got, want):
+                _held(f"{name}/{R}x{C}/{scheme}/{dims}", g, w, errs,
+                      "ellpack_pack")
+    log(f"  ellpack_pack: {len(_pack_cases())} matrices × 2 blockings × "
+        f"{len(SCHEMES + TIER)} schemes × 2 dims, bitwise equal")
+
+    sch = get_scheme("mixed_v3")
+    kw = dict(block_rows=256, col_tile=512)
+    n, nnz = single.shape[0], single.nnz
+    timed = {}
+    for label, dims_of in (("bucket", lambda g: tuple(bucket_up(d)
+                                                      for d in g[:3])),
+                           ("own", lambda g: g[:3])):
+        t0 = time.perf_counter()
+        got, want, geometry, dims = _pack_both(single, dev, sch, dims_of,
+                                               **kw)
+        for g, w in zip(got, want):
+            _held(f"poisson_2d(1000)/{label}", g, w, errs, "ellpack_pack")
+        log(f"  poisson_2d(1000) at {label} dims {dims} (geometry "
+            f"{geometry}): bitwise equal ({time.perf_counter() - t0:.1f} s "
+            "with the plain version on the CPU)")
+        csr = pack.CSRTensors.from_csr(single, dev)
+        lane = tuple(torch.empty_like(t) for t in got)
+        run = lambda: (pack.ellpack_geometry(csr, **kw),   # noqa: E731
+                       pack.ellpack_pack(csr, geometry, dims, out=lane,
+                                         matrix_dtype=sch.matrix_dtype,
+                                         vector_dtype=sch.vector_dtype,
+                                         **kw))
+        run()
+        for g, w in zip(lane, got):
+            if not _same(g, w):
+                raise AssertionError("ellpack_pack: a repeated pack differs")
+        flush = torch.zeros(256 << 20, dtype=torch.float32, device=dev)
+        reps = 20
+
+        def cold_runs():
+            for _ in range(reps):
+                flush.sum()
+                run()
+        _, _, ev = device_profile(cold_runs)
+        passes = {k: (t, c) for k, t, c in ev if "ellpack_" in k}
+        ms = sum(t for t, _ in passes.values()) / reps
+        csr_bytes = csr.nbytes
+        lane_bytes = nbytes(*got)
+        b_ms, b_by = bound_ms(csr_bytes + lane_bytes, 0, torch.float64)
+        plain = pack.CSRTensors.from_csr(single, dev)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = pack.ellpack_geometry_plain(plain, **kw)
+            pack.ellpack_pack_plain(plain, g, dims,
+                                    matrix_dtype=sch.matrix_dtype,
+                                    vector_dtype=sch.vector_dtype, **kw)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        plain_ms = sorted(walls)[1]
+        timed[label] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+            bound_by=b_by, bytes=csr_bytes + lane_bytes,
+            csr_bytes=csr_bytes, lane_bytes=lane_bytes, dims=list(dims),
+            passes={k: t / reps for k, (t, c) in passes.items()},
+            shape=f"poisson_2d(1000): n {n}, nnz {nnz}")
+        log(f"    ellpack_pack [{label} {dims}]: {ms:.4f} ms a pack "
+            f"({', '.join(f'{k[:40]} {t / reps:.4f}' for k, (t, c) in passes.items())}; "
+            f"plain on the card {plain_ms:.1f} ms wall); bound "
+            f"{b_ms:.4f} ms by {b_by} (CSR {csr_bytes} B + lane "
+            f"{lane_bytes} B, {b_ms / ms:.1%})")
+    t = dict(timed["bucket"], own=timed["own"], max_abs_err=errs[
+        "ellpack_pack"])
+    return {"ellpack_pack": t}
+
+
 # -------------------------------------------------------------- phase 6
 SINGLE_RUNS = (("vsr", "pallas", "mixed_v3"), ("vsr", "pallas", "fp64"),
                ("vsr", "xla", "mixed_v3"), ("pipelined", "xla", "mixed_v3"),
@@ -1589,10 +1737,12 @@ def phase_single_solve(a, dev):
                                  f"{res.converged} after {its}, true "
                                  f"residual {res_true:.3e}")
         if backend == "pallas":
-            # one SpMV per iteration plus init_state's, one dot, phase 2
-            # and phase 3 per iteration: no plain version on this path
+            # the operator packed on the card (both passes once); one SpMV
+            # per iteration plus init_state's, one dot, phase 2 and phase 3
+            # per iteration: no plain version on this path
             want = dict.fromkeys(counts, 0)
-            want.update(spmv_ell=its + 1, dot=its, phase2=its, phase3=its)
+            want.update(spmv_ell=its + 1, dot=its, phase2=its, phase3=its,
+                        ellpack_geometry=1, ellpack_scatter=1)
             if scheme in TIER:
                 want[f"spmv_ell[{scheme}]"] = its + 1
         else:
@@ -4258,13 +4408,15 @@ def main() -> int:
 
     # the kernels each path must launch (the tier's instantiations of
     # spmv_sell and spmv_ellpack on the batched path, tpu_v3's spmv_ell on
-    # the single-system one)
+    # the single-system one; the packer's two passes at the engine's
+    # ELLPACK admissions and the single-system operator build)
     tier = lambda k: tuple(f"{k}[{s}]" for s in TIER)   # noqa: E731
+    packer = ("ellpack_geometry", "ellpack_scatter")
     paths = {"solve": ("spmv_sell", "spmv_ellpack") + tier("spmv_sell")
              + tier("spmv_ellpack"),
-             "engine": ("spmv_sell", "spmv_ellpack"),
+             "engine": ("spmv_sell", "spmv_ellpack") + packer,
              "single": ("spmv_ell", "dot", "phase2", "phase3",
-                        "spmv_ell[tpu_v3]"),
+                        "spmv_ell[tpu_v3]") + packer,
              "sharded": ("spmv_sell", "spmv_ellpack"),
              "lm": FLASH_PATH, "families": FLASH_PATH, "whisper": FLASH_PATH,
              "suite": ("spmv_ell", "dot", "phase2", "phase3"),
@@ -4296,6 +4448,9 @@ def main() -> int:
     log_phase("[phase 5] single-system kernels against their plain "
               "versions")
     timed.update(phase_single_kernels(single, dev))
+    log_phase("[phase 5b] the CSR-to-ELLPACK packer against its plain "
+              "version")
+    timed.update(phase_pack(single, dev))
     log_phase("[phase 6] single-system solve")
     launches["single"], single_res, single_loops = phase_single_solve(single,
                                                                       dev)
@@ -4393,7 +4548,8 @@ def main() -> int:
                "flash_attention[wgmma]": "flash_attn_sm90.cu",
                "flash_attention[mma_sync]": "flash_attn.cu",
                "flash_attention[tf32x3]": "flash_attn_tf32.cu",
-               "flash_attention[fp32]": "flash_attn.cu"}
+               "flash_attention[fp32]": "flash_attn.cu",
+               "ellpack_pack": "ellpack_pack.cu"}
     sources = {name: csrc + src for name, src in sources.items()}
     # the total of the four routes: the wrapper, whose ``_route`` picks the
     # source of each launch (its row names them all)
@@ -4408,13 +4564,17 @@ def main() -> int:
                 "dot3": "src/repro/kernels/dot.py:106",
                 "phase2": "src/repro/kernels/fused_phase.py:62",
                 "phase3": "src/repro/kernels/fused_phase.py:106",
-                "flash_attention": "src/repro/kernels/flash_attn.py:90"}
+                "flash_attention": "src/repro/kernels/flash_attn.py:90",
+                # none: the JAX package packs on the host
+                "ellpack_pack": None}
     for name in FLASH_ROUTES:
         replaces[name] = replaces["flash_attention"]
     # each tier instantiation of the three SpMVs is an entry of its own
     for k in ("spmv_sell", "spmv_ellpack", "spmv_ell"):
         for name in tier(k):
             sources[name], replaces[name] = sources[k], replaces[k]
+    # a pack is a geometry launch, then a scatter: count the scatters
+    counted = {"ellpack_pack": "ellpack_scatter"}
     kernels = []
     for name, src in sources.items():
         t = timed[name]
@@ -4423,7 +4583,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": src,
             "replaces": replaces[name],
-            "launches": sum(c.get(name, 0) for c in launches.values()),
+            "launches": sum(c.get(counted.get(name, name), 0)
+                            for c in launches.values()),
             **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms")},
             **{k: t[k] for k in ("bound_stored_ms", "bound_streamed_ms",

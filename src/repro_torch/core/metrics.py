@@ -66,7 +66,8 @@ their ``.ns`` / ``.n`` counters):
 
 Traced counters: ``host_syncs`` (blocking device-to-host reads on the
 solve and engine paths: the loops' predicate reads, result reads, the
-engine's lane reads; counted on a CPU run too, where none blocks),
+engine's lane reads; counted on a CPU run too, where none blocks; and
+the ELLPACK packer's geometry read, on the card only),
 ``packed_nnz`` and ``packed_bytes`` (nonzeros packed and bytes of the
 lane arrays built on the host at admission), ``h2d_bytes`` (host arrays
 copied to the device at admission), ``d2h_bytes`` (bytes harvests copy

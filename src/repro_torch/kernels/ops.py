@@ -13,7 +13,8 @@
 The reference's ``interpret`` flag has no counterpart: each wrapper takes
 its plain version for CPU tensors and launches its kernel for CUDA
 tensors.  :func:`launches` and :func:`reset_launches` read and clear the
-launch counts of every kernel of the port, ``flash_attention`` included.
+launch counts of every kernel of the port, ``flash_attention`` and the
+CSR-to-ELLPACK packer (:mod:`repro_torch.kernels.pack`) included.
 """
 from __future__ import annotations
 
@@ -23,19 +24,21 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.core.metrics import solver_metrics
 from repro_torch.core.precision import PrecisionScheme, get_scheme
 from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import dot as _dot
 from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import fused_phase as _fused
+from repro_torch.kernels import pack as _pack
 from repro_torch.kernels import spmv as _spmv
 from repro_torch.sparse.csr import CSRMatrix, csr_from_coo
-from repro_torch.sparse.ellpack import EllpackMatrix, csr_to_ellpack
+from repro_torch.sparse.ellpack import EllpackMatrix
 
 __all__ = ["EllKernelOperator", "ell_operator_pallas", "bell_operator_pallas",
            "make_phase_ops", "make_dot3", "launches", "reset_launches"]
 
-_KERNEL_MODULES = (_spmv, _dot, _fused, _flash)
+_KERNEL_MODULES = (_spmv, _dot, _fused, _flash, _pack)
 
 
 def launches() -> Dict[str, int]:
@@ -96,18 +99,41 @@ class EllKernelOperator:
         return 2 * self.nnz
 
 
+def _operator_from_csr(a: CSRMatrix, scheme: PrecisionScheme, diag,
+                       block_rows: int, col_tile: int,
+                       dev: torch.device) -> EllKernelOperator:
+    """The operator packed on ``dev`` from the CSR (:mod:`repro_torch
+    .kernels.pack`): at the matrix's own dims, the diagonal the kernel's
+    unless ``diag`` is given; the same tensors, byte for byte, as
+    ``from_ellpack(csr_to_ellpack(a), scheme, a.diagonal())``."""
+    csr = _pack.CSRTensors.from_csr(a, dev)
+    geom = _pack.ellpack_geometry(csr, block_rows=block_rows,
+                                  col_tile=col_tile)
+    tile_cols, vals, local_cols, dg = _pack.ellpack_pack(
+        csr, geom, geom[:3], block_rows=block_rows, col_tile=col_tile,
+        matrix_dtype=scheme.matrix_dtype, vector_dtype=scheme.vector_dtype)
+    solver_metrics().count("device_packs")
+    n = a.shape[0]
+    return EllKernelOperator(
+        tile_cols=tile_cols, vals=vals, local_cols=local_cols,
+        diag=(dg[:n] if diag is None
+              else to_device(diag, dev, scheme.vector_dtype)),
+        n=n, block_rows=block_rows, col_tile=col_tile,
+        padded_cols=geom[3] * col_tile, scheme=scheme, nnz=a.nnz)
+
+
 def ell_operator_pallas(a, scheme, *, diag=None, block_rows: int = 256,
                         col_tile: int = 512,
                         device=None) -> EllKernelOperator:
     """Coerce CSR / EllpackMatrix / a dense square array to a kernel-backed
-    operator on ``device`` (default ``"cuda"``)."""
+    operator on ``device`` (default ``"cuda"``); a CSR (or dense array) is
+    packed on that device, only its arrays copied there."""
     scheme = get_scheme(scheme)
     if isinstance(a, EllKernelOperator):
         return a
     if isinstance(a, CSRMatrix):
-        d = a.diagonal() if diag is None else diag
-        m = csr_to_ellpack(a, block_rows=block_rows, col_tile=col_tile)
-        return EllKernelOperator.from_ellpack(m, scheme, d, device)
+        return _operator_from_csr(a, scheme, diag, block_rows, col_tile,
+                                  resolve_device(device))
     if isinstance(a, EllpackMatrix):
         if diag is None:
             raise ValueError("EllpackMatrix input requires an explicit diag")

@@ -54,14 +54,14 @@ from repro_torch.core.precision import (get_scheme, host_values,
 from repro_torch.core.shard import Shards, lane_mesh, shard_any
 from repro_torch.core.vm import BatchedVMState, make_vm_stepper
 from repro_torch.device import resolve_device
+from repro_torch.kernels.pack import (CSRTensors, ellpack_geometry,
+                                      ellpack_pack)
 from repro_torch.kernels.spmv import sell_table
 from repro_torch.sparse.csr import CSRMatrix
-from repro_torch.sparse.ellpack import csr_to_ellpack
 from repro_torch.sparse.stacking import (SELL_SLICE_ROWS, _sell_groups,
                                          bucket_up, choose_layout,
                                          csr_rowell, index_dtype,
-                                         lane_bucket_up,
-                                         pad_ellpack, sell_slice_widths,
+                                         lane_bucket_up, sell_slice_widths,
                                          stack_sell)
 
 __all__ = ["SolverEngineConfig", "SolverEngine"]
@@ -394,53 +394,36 @@ class _Pool:
                     self.lane_widths[s] = st1.lane_widths[0]
                     self.mats[d] = self._sell_mat(arrays,
                                                   self._shard_widths(d), d)
-        else:
+        elif cfg.backend == "xla":
             with span("admit.pack"):
-                if cfg.backend == "xla":
-                    cols_l, vals_l = csr_rowell(a)
-                    dims = (bucket_up(a.shape[0]),
-                            bucket_up(cols_l.shape[1]))
-                else:
-                    m = csr_to_ellpack(a, block_rows=cfg.block_rows,
-                                       col_tile=cfg.col_tile)
-                    dims = tuple(bucket_up(d) for d in (
-                        m.n_row_blocks, m.n_slabs, m.ell, m.n_col_tiles))
-            if self.bucket is None or any(d > o for d, o in
-                                          zip(dims, self.bucket)):
-                grown = dims if self.bucket is None else tuple(
-                    max(d, o) for d, o in zip(dims, self.bucket))
-                with span("admit.grow"):
-                    self._alloc(grown)
+                cols_l, vals_l = csr_rowell(a)
+            self._grow_to((bucket_up(a.shape[0]), bucket_up(cols_l.shape[1])))
             with span("admit.pack"):
-                if cfg.backend == "xla":
-                    # slot-major lane slab over the whole bucket: self-
-                    # gather template, then the real entries transposed in
-                    N, W = self.bucket
-                    n, w_a = cols_l.shape
-                    lane_cols = np.broadcast_to(
-                        np.arange(N, dtype=index_dtype(N)), (W, N)).copy()
-                    lane_cols[:w_a, :n] = cols_l.T
-                    lane_vals = np.zeros((W, N),
-                                         self.scheme.host_matrix_dtype)
-                    lane_vals[:w_a, :n] = host_values(
-                        vals_l.T, self.scheme.host_matrix_dtype)
-                    lanes = (lane_cols, lane_vals)
-                else:
-                    B, T, L, _ = self.bucket
-                    m = pad_ellpack(m, n_row_blocks=B, n_slabs=T, ell=L)
-                    lanes = (m.tile_cols, m.vals, m.local_cols)
+                # slot-major lane slab over the whole bucket: self-gather
+                # template, then the real entries transposed in
+                N, W = self.bucket
+                n, w_a = cols_l.shape
+                lane_cols = np.broadcast_to(
+                    np.arange(N, dtype=index_dtype(N)), (W, N)).copy()
+                lane_cols[:w_a, :n] = cols_l.T
+                lane_vals = np.zeros((W, N), self.scheme.host_matrix_dtype)
+                lane_vals[:w_a, :n] = host_values(
+                    vals_l.T, self.scheme.host_matrix_dtype)
+                lanes = (lane_cols, lane_vals)
             self._count_packed(*lanes, nnz=a.nnz)
             self.csr_of_slot[s] = a
             with span("admit.copy"):
                 d, j = self._loc(s)
                 for arr, lane in zip(self.mats[d], lanes):
                     arr[j] = self._tensor(lane, d, arr.dtype)
+        else:
+            self.csr_of_slot[s] = a
+            return self._admit_ellpack(s, a, b, x0, tol, maxiter)
 
         vd = self.scheme.vector_dtype
         d, j = self._loc(s)
         n = a.shape[0]
-        st = self.states[d]
-        n_pad = st.mem.shape[-1]
+        n_pad = self.states[d].mem.shape[-1]
         with span("admit.pack"):
             dg = np.ones(n_pad)
             dg[:n] = a.diagonal()
@@ -454,8 +437,68 @@ class _Pool:
             diag_l = self._tensor(dg[None], d, vd)
             b_l = self._tensor(bb[None], d, vd)
             x0_l = self._tensor(xx[None], d, vd)
+        return self._start_lane(s, n, diag_l, b_l, x0_l, tol, maxiter)
 
-        with span("admit.warmup"):
+    def _grow_to(self, dims) -> None:
+        """Allocate the bucket, or grow it to hold ``dims``."""
+        if self.bucket is None or any(d > o for d, o in
+                                      zip(dims, self.bucket)):
+            grown = dims if self.bucket is None else tuple(
+                max(d, o) for d, o in zip(dims, self.bucket))
+            with self.metrics.span("admit.grow"):
+                self._alloc(grown)
+
+    def _admit_ellpack(self, s: int, a: CSRMatrix, b, x0, tol,
+                       maxiter) -> int:
+        """Admit into an ELLPACK pool, packing on the slot's device: the
+        CSR, b and x0 are copied once, the geometry pass sizes the lane
+        (one blocking read), and the scatter pass writes every slot of the
+        lane and its diagonal in place (:mod:`repro_torch.kernels.pack`).
+        Nothing is kept from one admission to the next."""
+        cfg, span = self.cfg, self.metrics.span
+        count = self.metrics.count
+        vd = self.scheme.vector_dtype
+        d, j = self._loc(s)
+        dev = self.devices[d]
+        n = a.shape[0]
+        with span("admit.copy"):
+            csr = CSRTensors.from_csr(a, dev)
+            count("h2d_bytes", csr.nbytes)
+            b_d = None if b is None else self._tensor(
+                np.asarray(b, np.float64), d, vd)
+            x0_d = None if x0 is None else self._tensor(
+                np.asarray(x0, np.float64), d, vd)
+        with span("admit.pack"):
+            geom = ellpack_geometry(csr, block_rows=cfg.block_rows,
+                                    col_tile=cfg.col_tile)
+        self._grow_to(tuple(bucket_up(x) for x in geom))
+        with span("admit.pack"):
+            B, T, L, _ = self.bucket
+            n_pad = B * cfg.block_rows
+            diag = torch.empty(n_pad, dtype=vd, device=dev)
+            lane = ellpack_pack(
+                csr, geom, (B, T, L), block_rows=cfg.block_rows,
+                col_tile=cfg.col_tile, matrix_dtype=self.scheme.matrix_dtype,
+                vector_dtype=vd,
+                out=tuple(arr[j] for arr in self.mats[d]) + (diag,))
+            count("device_packs")
+            b_l = torch.zeros((1, n_pad), dtype=vd, device=dev)
+            b_l[0, :n] = 1.0 if b_d is None else b_d
+            x0_l = torch.zeros((1, n_pad), dtype=vd, device=dev)
+            if x0_d is not None:
+                x0_l[0, :n] = x0_d
+        self._count_packed(*lane, b_l, x0_l, nnz=a.nnz)
+        return self._start_lane(s, n, diag[None], b_l, x0_l, tol, maxiter)
+
+    def _start_lane(self, s: int, n: int, diag_l, b_l, x0_l, tol,
+                    maxiter) -> int:
+        """The JPCG warm-up of slot ``s``'s lane and its VM state."""
+        cfg = self.cfg
+        vd = self.scheme.vector_dtype
+        d, j = self._loc(s)
+        st = self.states[d]
+
+        with self.metrics.span("admit.warmup"):
             # JPCG warm-up for this lane alone, through the pool's own SpMV.
             r = b_l - self._matvec_of()(self._lane_mat(s))(x0_l)
             z = r / diag_l
@@ -481,9 +524,12 @@ class _Pool:
         return s
 
     def _count_packed(self, *arrays, nnz: int = 0) -> None:
-        """Count host packing: ``nnz`` nonzeros into ``arrays``."""
+        """Count packing: ``nnz`` nonzeros into ``arrays`` (host arrays,
+        or the device tensors of a lane packed on its device)."""
         self.metrics.count("packed_nnz", nnz)
-        self.metrics.count("packed_bytes", sum(a.nbytes for a in arrays))
+        self.metrics.count("packed_bytes", sum(
+            _nbytes(a) if isinstance(a, torch.Tensor) else a.nbytes
+            for a in arrays))
 
     def _lane_stream_bytes(self) -> int:
         """At-rest nonzero stream per lane per SpMV: packed values +

@@ -406,7 +406,8 @@ def test_phase_ops_on_cpu_are_the_plain_versions():
     assert torch.equal(xn, x + alpha * p)
     assert set(ops.launches().values()) == {0}
     kernels = {"spmv_sell", "spmv_ellpack", "spmv_ell", "dot", "dot3",
-               "phase2", "phase3", "flash_attention"}
+               "phase2", "phase3", "flash_attention", "ellpack_geometry",
+               "ellpack_scatter"}
     tier = {f"{k}[{s}]" for k in ("spmv_sell", "spmv_ellpack", "spmv_ell")
             for s in ("tpu_fp32", "tpu_v1", "tpu_v2", "tpu_v3")}
     routes = {f"flash_attention[{r}]"
